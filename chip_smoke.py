@@ -7,22 +7,37 @@ Needs one CUDA device, ``nvcc`` and the repository's ``tacex_tpu_torch``
 package beside this file; it imports nothing of JAX. In order it:
 
   1. prints the card's name and power limit (``nvidia-smi``);
-  2. builds the CUDA kernels from ``tacex_tpu_torch/csrc`` for sm_90a;
-  3. holds each kernel against its plain PyTorch version at the main path's
-     shapes (atol 1e-5: sums run in another order and nvcc contracts to FMA)
-     and times both with CUDA events;
-  4. runs ``TacEx-Ball-Rolling-Taxim-Fots-v0`` at 4096 envs with the
+  2. builds the CUDA kernels from ``tacex_tpu_torch/csrc`` for sm_90a (one
+     nvcc per source, in parallel) and prints ptxas's registers and spills;
+  3. runs ``GelSightSensor`` with its default 320x240 Taxim + FOTS config on
+     256 envs (a 4 mm sphere pressed into the gel, its centre and depth
+     varied per env), with the launch counters reset just before one update;
+     checks both kernels ran, times the update, and holds 2 envs to the
+     CPU's (plain versions) under the bin rule of ``tests/_torch_bins.py``,
+     printing how near a bin edge the pixels whose bins differ lie;
+  4. holds each kernel against its plain PyTorch version (atol 1e-5: sums
+     run in another order and nvcc contracts to FMA): the pyramid at the
+     flagship frame (4096, 24, 32), at (5, 48, 64) and at the sensor frame
+     (256, 240, 320); the shading at (4096, 768) with the 15,625-row table,
+     through ``dir_row_shade``, and at the sensor frame's (256, 76800)
+     pixels; times each with CUDA events beside its
+     plain version, its bound (bytes over 3.35 TB/s or FLOPs over
+     67 TFLOP/s FP32, NVIDIA's H100 SXM data sheet, whichever is larger)
+     and, for the shading, the one PyTorch call that computes it
+     (``embedding_bag``, timed here only: the port never calls it);
+  5. runs ``TacEx-Ball-Rolling-Taxim-Fots-v0`` at 4096 envs with the
      actor-critic's mean action (plus -0.1 on z, so the gel presses the
      ball) in the loop; the steady steps run under
      ``torch.cuda.set_sync_debug_mode("error")``, so any host sync raises;
      checks every output is finite, that the gel is pressed, and that both
      kernels were launched on every step;
-  5. steps the env at 8 envs on the card (kernels) and on the CPU (plain
+  6. steps the env at 8 envs on the card (kernels) and on the CPU (plain
      versions) from one state and holds the two to each other.
 
-The second-to-last line is a JSON object with each kernel's launches on the
-main path, its error against the plain version and both times; the last line
-is ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
+The second-to-last line is a JSON object with each kernel's launches on
+each path, its error against the plain version, its times, bound and share
+of the bound; the last line is ``{"ok": true, "device": {...}}``. Any
+failure raises and exits non-zero.
 """
 
 from __future__ import annotations
@@ -34,26 +49,44 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ENV_ID = "TacEx-Ball-Rolling-Taxim-Fots-v0"
 NUM_ENVS = 4096
+SENSOR_ENVS = 256
 WARMUP_STEPS = 2
 STEPS = 10
 KERNEL_ATOL = 1e-5
+# NVIDIA H100 SXM data sheet: device memory rate and FP32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+SPIN_CYCLES = 20_000_000  # ~10 ms at 2 GHz: the host queues the timed calls meanwhile
+# How near a LUT bin edge (in bins) a gradient may lie for the card's and the
+# CPU's sensor images to take different rows there: their inputs differ by one
+# f32 step of the depth, which moved no gradient by more than 0.0013 bins on
+# an H100 (the sensor phase prints the largest it sees).
+EDGE_BINS = 0.005
 REPO = Path(__file__).resolve().parent
 
 
-def _timed_ms(fn, iters: int = 20) -> float:
+def _timed_ms(fn, iters: int = 20) -> tuple[float, float]:
+    """(device ms, host ms) of one call. The calls are queued behind a spin
+    on the card, so the CUDA events around them time the device alone; the
+    host clock around the queueing times the host's side of a call."""
     for _ in range(3):
         fn()
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    host = time.perf_counter() - t0
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, 1e3 * host / iters
 
 
 def _frame(env, state):
@@ -82,60 +115,221 @@ def _frame(env, state):
     return joined.contiguous(), mask.contiguous(), sigmas, idx, idx_dir.reshape(n, p).contiguous()
 
 
-def kernel_phase(env, state, device) -> dict:
-    """Each kernel against its plain version at the main path's shapes."""
+def sensor_sigmas(hw) -> tuple:
+    """The sensor's pyramid at an h x w image: its levels, then the final blur."""
+    from tacex_tpu_torch.sensors.gelsight.taxim.calib import default_calib_folder
+    from tacex_tpu_torch.sensors.gelsight.taxim.params import load_params
+
+    sim = load_params(default_calib_folder())[0]
+    return tuple(sim.deform_pyramid_sigma(hw)) + (sim.deform_final_sigma(hw),)
+
+
+def _bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time (ms) the card could take: bytes over the memory rate or
+    operations over the FP32 rate, whichever is larger, and which it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def pyramid_bound(shape, sigmas) -> tuple[float, str]:
+    """K1 reads joined (f32) and mask (1 byte) and writes the result (f32)
+    once; each tap of a pass with more than one tap is one FMA (2 FLOPs) a
+    pixel (a one-tap pass is the identity)."""
+    from tacex_tpu_torch.ops.blur import gaussian_taps
+
+    n, h, w = shape
+    taps = sum(len(gaussian_taps(s)) for sx, sy in sigmas for s in (sy, sx) if len(gaussian_taps(s)) > 1)
+    return _bound(n * h * w * (4 + 1 + 4), 2.0 * n * h * w * taps)
+
+
+def lut_bound(n, p, rows) -> tuple[float, str]:
+    """K2 reads the indices (i32), the features (6 x P f32) and the table
+    (R x 18 f32) once and writes (n, P, 3) f32; 18 FMAs a pixel."""
+    return _bound(4 * n * p + 24 * p + 72 * rows + 12 * n * p, 36.0 * n * p)
+
+
+def _timing(fn, plain, nbytes_flops) -> dict:
+    ms, host_ms = _timed_ms(fn)
+    bound_ms, bound_by = nbytes_flops
+    return dict(ms=ms, plain_ms=_timed_ms(plain)[0], bound_ms=bound_ms, bound_by=bound_by,
+                pct_of_bound=100.0 * bound_ms / ms, host_ms=host_ms)
+
+
+def _compare(name, out, ref) -> float:
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    finite = bool(torch.isfinite(out).all())
+    print(f"kernel {name}: shape {tuple(out.shape)} max_abs_err {err:.3e} (atol {KERNEL_ATOL})")
+    if not finite or not err <= KERNEL_ATOL:
+        raise AssertionError(f"{name} disagrees with its plain version: max_abs_err {err}, finite {finite}")
+    return err
+
+
+def kernel_phase(env, state, device, sensor_frame, sensor_lut) -> dict:
+    """Each kernel against its plain version at the main path's shapes, and
+    at the default sensor's (256, 240, 320) frame."""
     from tacex_tpu_torch.ops import lut_shade as K2
     from tacex_tpu_torch.ops import pyramid as K1
-    from tacex_tpu_torch.sensors.gelsight.taxim.params import load_params
-    from tacex_tpu_torch.sensors.gelsight.taxim.calib import default_calib_folder
 
     calib = env.sensor.calib
     joined, mask, sigmas, idx, idir = _frame(env, state)
-    results = {}
 
-    def compare(name, out, ref):
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        finite = bool(torch.isfinite(out).all())
-        print(f"kernel {name}: shape {tuple(out.shape)} max_abs_err {err:.3e} (atol {KERNEL_ATOL})")
-        if not finite or not err <= KERNEL_ATOL:
-            raise AssertionError(f"{name} disagrees with its plain version: max_abs_err {err}, finite {finite}")
-        return err
-
-    # K1 on the frame (4096, 24, 32), then on a ragged (5, 48, 64) batch
-    err1 = compare("deformation_pyramid", K1.deformation_pyramid(joined, mask, sigmas),
-                   K1.deformation_pyramid_plain(joined, mask, sigmas))
-    sim = load_params(default_calib_folder())[0]
-    sig48 = list(sim.deform_pyramid_sigma((48, 64))) + [sim.deform_final_sigma((48, 64))]
+    # K1 on the frame (4096, 24, 32), on a ragged (5, 48, 64) batch, and on
+    # the sensor's (256, 240, 320) frame
+    err1 = _compare("deformation_pyramid", K1.deformation_pyramid(joined, mask, sigmas),
+                    K1.deformation_pyramid_plain(joined, mask, sigmas))
+    sig48 = sensor_sigmas((48, 64))
     g = torch.Generator(device=device).manual_seed(0)
     j48 = torch.rand((5, 48, 64), generator=g, device=device) * 3.0 - 1.0
     m48 = torch.rand((5, 48, 64), generator=g, device=device) < 0.2
-    err1 = max(err1, compare("deformation_pyramid[5x48x64]", K1.deformation_pyramid(j48, m48, sig48),
-                             K1.deformation_pyramid_plain(j48, m48, sig48)))
-    results["deformation_pyramid"] = dict(
-        max_abs_err=err1,
-        ms=_timed_ms(lambda: K1.deformation_pyramid(joined, mask, sigmas)),
-        plain_ms=_timed_ms(lambda: K1.deformation_pyramid_plain(joined, mask, sigmas)),
-    )
+    err48 = _compare("deformation_pyramid[5x48x64]", K1.deformation_pyramid(j48, m48, sig48),
+                     K1.deformation_pyramid_plain(j48, m48, sig48))
+    jb, mb, sb = sensor_frame
+    errb = _compare("deformation_pyramid[256x240x320]", K1.deformation_pyramid(jb, mb, sb),
+                    K1.deformation_pyramid_plain(jb, mb, sb))
+    k1 = dict(shape=list(joined.shape), max_abs_err=max(err1, err48, errb),
+              **_timing(lambda: K1.deformation_pyramid(joined, mask, sigmas),
+                        lambda: K1.deformation_pyramid_plain(joined, mask, sigmas),
+                        pyramid_bound(joined.shape, sigmas)),
+              library_ms=None)
+    k1["other_shapes"] = [dict(shape=list(jb.shape), max_abs_err=errb,
+                               **_timing(lambda: K1.deformation_pyramid(jb, mb, sb),
+                                         lambda: K1.deformation_pyramid_plain(jb, mb, sb),
+                                         pyramid_bound(jb.shape, sb)))]
 
     # K2 with the full 15,625-row table at (4096, 768), then the 125-row
     # magnitude-bin-0 subtable through dir_row_shade (P = 768)
     nb = calib.sensor_params.num_bins
     table = calib.poly_lut.reshape(nb * nb, 18)
     feats = calib.features
-    err2 = compare("lut_shade", K2.lut_shade(idx, feats, table), K2.lut_shade_plain(idx, feats, table))
+    err2 = _compare("lut_shade", K2.lut_shade(idx, feats, table), K2.lut_shade_plain(idx, feats, table))
     tabs = torch.zeros((18, 128), device=device)
     tabs[:, :nb] = table[:nb].T
-    err2 = max(err2, compare("dir_row_shade", K2.dir_row_shade(idir, feats, tabs),
-                             K2.lut_shade_plain(idir, feats, tabs.T)))
-    results["lut_shade"] = dict(
-        max_abs_err=err2,
-        ms=_timed_ms(lambda: K2.lut_shade(idx, feats, table)),
-        plain_ms=_timed_ms(lambda: K2.lut_shade_plain(idx, feats, table)),
-    )
-    for name, r in results.items():
-        print(f"kernel {name}: {r['ms']:.4f} ms, plain PyTorch {r['plain_ms']:.4f} ms")
-    return results
+    err2 = max(err2, _compare("dir_row_shade", K2.dir_row_shade(idir, feats, tabs),
+                              K2.lut_shade_plain(idir, feats, tabs.T)))
+    # the library yardstick: one embedding_bag over bags of the pixel's six
+    # 3-float LUT entries, weighted by its features (inputs built untimed)
+    n, p = idx.shape
+    bags = (idx.long()[..., None] * 6 + torch.arange(6, device=device)).reshape(n * p, 6)
+    weights = feats.T.expand(n, p, 6).reshape(n * p, 6).contiguous()
+    entries = table.reshape(-1, 3)
+    library = lambda: torch.nn.functional.embedding_bag(bags, entries, per_sample_weights=weights, mode="sum")
+    _compare("embedding_bag (library yardstick)", library().reshape(n, p, 3), K2.lut_shade_plain(idx, feats, table))
+    k2 = dict(shape=[n, p, table.shape[0]], max_abs_err=err2,
+              **_timing(lambda: K2.lut_shade(idx, feats, table), lambda: K2.lut_shade_plain(idx, feats, table),
+                        lut_bound(n, p, table.shape[0])),
+              library_ms=_timed_ms(library)[0])
+    # K2 on the sensor frame's (256, 76800) pixels, 75 blocks of pixels wide
+    ib, fb, tb = sensor_lut
+    err2b = _compare("lut_shade[256x76800]", K2.lut_shade(ib, fb, tb), K2.lut_shade_plain(ib, fb, tb))
+    k2["max_abs_err"] = max(err2, err2b)
+    k2["other_shapes"] = [dict(shape=[*ib.shape, tb.shape[0]], max_abs_err=err2b,
+                               **_timing(lambda: K2.lut_shade(ib, fb, tb), lambda: K2.lut_shade_plain(ib, fb, tb),
+                                         lut_bound(*ib.shape, tb.shape[0])))]
+    shown = (("deformation_pyramid", k1), ("deformation_pyramid", k1["other_shapes"][0]), ("lut_shade", k2),
+             ("lut_shade", k2["other_shapes"][0]))
+    for name, r in shown:
+        lib = "" if r.get("library_ms") is None else f", library call {r['library_ms']:.4f} ms"
+        print(f"kernel {name} {r['shape']}: {r['ms']:.4f} ms, plain PyTorch {r['plain_ms']:.4f} ms{lib}, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) = {r['pct_of_bound']:.1f}% of bound; "
+              f"host {r['host_ms']:.4f} ms a call")
+    return {"deformation_pyramid": k1, "lut_shade": k2}
+
+
+def _press_depth(n: int, device) -> torch.Tensor:
+    """(n, 240, 320) camera depth (m) of a 4 mm sphere pressed 1.2-1.6 mm
+    into the gel, as in the verify recipe, its centre moved per env."""
+    h, w = 240, 320
+    i = torch.arange(n, device=device, dtype=torch.float32)
+    cy = 120.0 + (i % 16 - 8.0) * 3.0
+    cx = 160.0 + (torch.div(i, 16, rounding_mode="floor") % 16 - 8.0) * 3.0
+    yy = torch.arange(h, device=device, dtype=torch.float32)[None, :, None]
+    xx = torch.arange(w, device=device, dtype=torch.float32)[None, None, :]
+    r = torch.sqrt((yy - cy[:, None, None]) ** 2 + (xx - cx[:, None, None]) ** 2) * 0.059
+    z = torch.where(r < 4.0, 4.0 - torch.sqrt(torch.clamp(16.0 - r * r, min=0.0)), 4.0)
+    press = 0.0012 + 0.0001 * (i % 5)
+    return 0.0285 + (z - z.amin(dim=(-2, -1), keepdim=True)) / 1000.0 - press[:, None, None]
+
+
+def _sensor_frame(sensor, out):
+    """The sensor frame's pyramid inputs and LUT gradients and bins."""
+    from tacex_tpu_torch.sensors.gelsight.taxim import optical
+
+    shifted = optical.shift_height_map(out["height_map"], out["indentation_depth"])
+    joined, mask, sigmas = optical.deformation_inputs(sensor.calib, shifted)
+    deformed, _ = optical.compute_gel_deformation(sensor.calib, shifted)
+    grad_mag, grad_dir = optical.generate_normals(sensor.calib, -deformed / sensor.calib.sensor_params.pixmm)
+    bins = optical.lut_bins(sensor.calib, grad_mag, grad_dir)
+    return (joined.contiguous(), mask.contiguous(), sigmas), grad_mag, grad_dir, bins
+
+
+def sensor_phase(device) -> dict:
+    """The default GelSight Mini sensor (320x240 Taxim + FOTS) on 256 envs:
+    one update counted, its time, and 2 envs held to the CPU's."""
+    sys.path.insert(0, str(REPO / "tests"))
+    from _torch_bins import NOISE_FLOOR, assert_bin_rule, bin_coords, lut_spread
+    from tacex_tpu_torch.ops import lut_shade as K2
+    from tacex_tpu_torch.ops import pyramid as K1
+    from tacex_tpu_torch.sensors.gelsight.sensor import GelSightSensor
+    from tacex_tpu_torch.sensors.gelsight.sensor_cfg import gelsight_mini_cfg
+
+    cfg = gelsight_mini_cfg()
+    sensor = GelSightSensor(cfg, num_envs=SENSOR_ENVS, device=device)
+    depth = _press_depth(SENSOR_ENVS, device)
+    state, out = sensor.update(sensor.init_state(), depth)
+    torch.cuda.synchronize()
+    K1.deformation_pyramid.launches = 0
+    K2.lut_shade.launches = 0
+    state, out = sensor.update(state, depth)
+    launches = {"deformation_pyramid": K1.deformation_pyramid.launches, "lut_shade": K2.lut_shade.launches}
+    torch.cuda.synchronize()
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"{name} was not launched by the 320x240 sensor update")
+    rgb = out["tactile_rgb"]
+    if tuple(rgb.shape) != (SENSOR_ENVS, 240, 320, 3) or not bool(torch.isfinite(rgb).all()):
+        raise AssertionError(f"tactile_rgb {tuple(rgb.shape)} is not a finite (256, 240, 320, 3) image")
+    if not bool((out["indentation_depth"] > 0).all()):
+        raise AssertionError("an env of the sensor phase does not press the gel")
+    t0 = time.perf_counter()
+    for _ in range(10):
+        sensor.update(state, depth)
+    torch.cuda.synchronize()
+    update_ms = 1e3 * (time.perf_counter() - t0) / 10
+
+    # 2 envs through the plain versions on the CPU, from the same state
+    cpu = GelSightSensor(cfg, num_envs=2, device="cpu")
+    st_c, out_c = cpu.update(cpu.init_state(), depth[:2].cpu())
+    st_c, out_c = cpu.update(st_c, depth[:2].cpu())
+    d_ind = float((out["indentation_depth"][:2].cpu() - out_c["indentation_depth"]).abs().max())
+    d_mark = float((out["marker_motion"][:2].cpu() - out_c["marker_motion"]).abs().max())
+    frame, _, _, bins_g = _sensor_frame(sensor, out)
+    _, gm_c, gd_c, bins_c = _sensor_frame(cpu, out_c)
+    nb = cpu.calib.sensor_params.num_bins
+    spread = lut_spread(cpu.calib.poly_lut.numpy(), cpu.calib.features.numpy(), nb)
+    # the two devices round the depth's m -> mm -> m arithmetic differently,
+    # so indentation, and with it the pyramid's input, differs by one f32
+    # step of the 0.0285 m depth (~2e-6 mm); gradients within EDGE_BINS of
+    # an edge may then switch bins (the kernels themselves are held to their
+    # plain versions on this frame in the kernel phase)
+    bt, bc = [b[:2].cpu().numpy() for b in bins_g], [b.numpy() for b in bins_c]
+    held = assert_bin_rule(rgb[:2].cpu().numpy(), out_c["tactile_rgb"].numpy(), gm_c.numpy(), gd_c.numpy(), nb,
+                           spread, bins_t=bt, bins_j=bc, edge_bins=EDGE_BINS)
+    t_mag, t_dir = bin_coords(gm_c.numpy(), gd_c.numpy(), nb)
+    edge = np.minimum(np.abs(t_mag - np.round(t_mag)), np.abs(t_dir - np.round(t_dir)))
+    moved = ((bt[0] != bc[0]) | (bt[1] != bc[1])) & (np.tan(gm_c.numpy().astype(np.float64)) >= NOISE_FLOOR)
+    worst_edge = float(edge[moved].max(initial=0.0))
+    print(f"sensor: default GelSight Mini 320x240 Taxim + FOTS, {SENSOR_ENVS} envs: {update_ms:.3f} ms per update "
+          "(host clock over 10 updates, synchronised); "
+          f"launches {launches}; cuda vs cpu (2 envs): indentation {d_ind:.2e} mm, markers {d_mark:.2e} px, "
+          f"{held:.4f} of pixels held to 1e-4 under the bin rule; {int(moved.sum())} pixels above the noise floor "
+          f"take another bin, the farthest {worst_edge:.2e} bins from an edge (margin {EDGE_BINS})")
+    if not (d_ind <= 1e-3 and d_mark <= 1e-3):
+        raise AssertionError("the card's 320x240 sensor update disagrees with the CPU's")
+    idx_mag, idx_dir = bins_g
+    lut = ((idx_mag * nb + idx_dir).reshape(SENSOR_ENVS, -1).contiguous(), sensor.calib.features,
+           sensor.calib.poly_lut.reshape(nb * nb, 18))
+    return dict(launches=launches, update_ms=update_ms, frame=frame, lut=lut, worst_edge_bins=worst_edge)
 
 
 def _policy_action(policy, obs):
@@ -287,7 +481,8 @@ def main() -> None:
     policy.init_(torch.Generator(device=device).manual_seed(0))
     state, obs, *_ = env.step(state, _policy_action(policy, obs))
 
-    kernels = kernel_phase(env, state, device)
+    sensor = sensor_phase(device)
+    kernels = kernel_phase(env, state, device, sensor["frame"], sensor["lut"])
     run = slice_phase(env, state, obs, policy)
     reference_phase(device)
 
@@ -297,7 +492,9 @@ def main() -> None:
     }
     report = {
         "kernels": [
-            dict(name=name, route="cuda", source=src, replaces=rep, launches=run["launches"][name], **kernels[name])
+            dict(name=name, route="cuda", source=src, replaces=rep, launches=run["launches"][name],
+                 paths={"env_step_4096": run["launches"][name], "sensor_320x240_256": sensor["launches"][name]},
+                 **kernels[name])
             for name, (src, rep) in sources.items()
         ],
         "gpu": gpu,
@@ -306,6 +503,9 @@ def main() -> None:
         "env_steps_per_s": run["env_steps_per_s"],
         "step_ms": run["step_ms"],
         "peak_memory_gb": run["peak_gb"],
+        "sensor_320x240_update_ms": sensor["update_ms"],
+        "sensor_envs": SENSOR_ENVS,
+        "sensor_worst_edge_bins": sensor["worst_edge_bins"],
     }
     print(json.dumps(report))
     card = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

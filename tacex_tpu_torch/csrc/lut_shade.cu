@@ -8,53 +8,142 @@
 //
 //   out[n, p, c] = sum_{k < 6} feats[k, p] * table[idx[n, p], 3 k + c]
 //
-// What bounds it on Hopper: per pixel it reads a 4-byte index, 24 bytes of
-// features (shared by the batch, so they stay in L1/L2) and one 72-byte table
-// row, and writes 12 bytes; 18 FMAs. The full table is 1.1 MB and lives in
-// the 50 MB L2, so the kernel is bound by the index reads and output writes
-// (about 12 MB at 4096 x 768 pixels) and by the latency of the dependent row
-// gather.
+// What bounds it on Hopper: per pixel it reads a 4-byte index and writes 12
+// bytes; the features (6 x P) are shared by the whole batch and the table
+// (1.1 MB at 15,625 rows) lives in the 50 MB L2. At 4096 x 768 pixels that is
+// ~51 MB of device memory traffic, 15 us at 3.35 TB/s; the 18 FMAs a pixel
+// are far below the FP32 rate. So it is bound by bytes, and by the latency
+// of the row gather that depends on each index load.
 //
-// What the design does about it: one thread per pixel, consecutive threads on
-// consecutive pixels (coalesced index reads and output writes); rows and
-// features go through the read-only cache. Everything stays f32 (no TF32, no
-// bf16, no fast-math): the features reach 640^2 = 4.1e5 and the quadratic
-// cancels. A row index outside the table writes NaN instead of reading out of
-// bounds, since the kernel cannot raise.
+// What the design does about it:
+//   * a 2-D grid: a block owns a tile of pixels (blockIdx.x) and loops over
+//     a range of envs (blockIdx.y); each thread takes 4 consecutive pixels
+//     and keeps their 24 features in registers across its envs, so features
+//     are read once per block, not once per pixel, and no `% P` is taken;
+//   * one 16-byte index load per thread and env, the next env's indices
+//     loaded before the current env's rows are used;
+//   * a row is 72 bytes, so it starts on a 16-byte boundary when its index
+//     is even: an even row loads as four float4 then a float2, an odd row as
+//     a float2 then four float4: 5 loads instead of 9; the gather's cost is
+//     the L1 lookups of 32 lanes' different rows, so fewer, wider loads pay;
+//   * all 20 row loads of a thread's 4 pixels are issued before any is
+//     used, so they are in flight together;
+//   * the 48 output bytes go out as three 16-byte stores;
+//   * a ragged P (not a multiple of 4) takes scalar index loads and stores
+//     and masks the last quad; a ragged env range is a shorter loop.
+// Everything stays f32 (no TF32, no bf16, no fast-math): the features reach
+// 640^2 = 4.1e5 and the quadratic cancels. A row index outside the table
+// writes NaN instead of reading out of bounds, since the kernel cannot raise.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxThreads = 256;
+constexpr int kEnvsPerBlock = 8;
 
-__global__ void __launch_bounds__(kThreads)
-lut_shade_kernel(const int32_t* __restrict__ idx, const float* __restrict__ feats,
-                 const float* __restrict__ table, float* __restrict__ out,
-                 int64_t total, int p, int rows) {
-  const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (g >= total) return;
-  const int pix = static_cast<int>(g % p);
-  const int row = __ldg(idx + g);
-  float a0, a1, a2;
-  if (row < 0 || row >= rows) {
-    a0 = a1 = a2 = __int_as_float(0x7fc00000);
-  } else {
-    const float* r = table + static_cast<int64_t>(row) * 18;
-    a0 = a1 = a2 = 0.0f;
+template <bool kVec>
+__device__ __forceinline__ int4 load_idx(const int32_t* __restrict__ idx, int64_t at, int live) {
+  if (kVec) return __ldg(reinterpret_cast<const int4*>(idx + at));
+  int4 r = make_int4(0, 0, 0, 0);
+  if (live > 0) r.x = __ldg(idx + at);
+  if (live > 1) r.y = __ldg(idx + at + 1);
+  if (live > 2) r.z = __ldg(idx + at + 2);
+  if (live > 3) r.w = __ldg(idx + at + 3);
+  return r;
+}
+
+// One 72-byte table row: a float2 and four float4, in the order the row's
+// 16-byte alignment gives (odd: the float2 first).
+struct Row {
+  float2 e;
+  float4 q[4];
+  bool odd;
+};
+
+__device__ __forceinline__ Row load_row(const float* __restrict__ table, int r) {
+  Row row;
+  const float* at = table + static_cast<int64_t>(r) * 18;
+  row.odd = r & 1;
+  row.e = __ldg(reinterpret_cast<const float2*>(at + (row.odd ? 0 : 16)));
+  const float4* q = reinterpret_cast<const float4*>(at + (row.odd ? 2 : 0));
 #pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      const float f = __ldg(feats + static_cast<int64_t>(k) * p + pix);
-      a0 += f * __ldg(r + 3 * k + 0);
-      a1 += f * __ldg(r + 3 * k + 1);
-      a2 += f * __ldg(r + 3 * k + 2);
+  for (int i = 0; i < 4; ++i) row.q[i] = __ldg(q + i);
+  return row;
+}
+
+__device__ __forceinline__ float quad_at(const float4 (&q)[4], int i) {
+  const float4 v = q[i >> 2];
+  return (i & 3) == 0 ? v.x : (i & 3) == 1 ? v.y : (i & 3) == 2 ? v.z : v.w;
+}
+
+// Entry i of the row (i is a constant once unrolled).
+__device__ __forceinline__ float coeff(const Row& row, int i) {
+  const float even = i < 16 ? quad_at(row.q, i) : (i == 16 ? row.e.x : row.e.y);
+  const float odd = i < 2 ? (i == 0 ? row.e.x : row.e.y) : quad_at(row.q, i - 2);
+  return row.odd ? odd : even;
+}
+
+// kVec: P % 4 == 0 and 16-byte aligned idx and out, so index rows and output
+// rows are 16-byte aligned and every quad is whole.
+template <bool kVec>
+__global__ void __launch_bounds__(kMaxThreads)
+lut_shade_kernel(const int32_t* __restrict__ idx, const float* __restrict__ feats,
+                 const float* __restrict__ table, float* __restrict__ out, int n, int p,
+                 int rows) {
+  const int p0 = (blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (p0 >= p) return;
+  const int live = min(4, p - p0);
+  const int n0 = blockIdx.y * kEnvsPerBlock;
+  const int n1 = min(n, n0 + kEnvsPerBlock);
+
+  float f[6][4];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) f[k][q] = q < live ? __ldg(feats + static_cast<int64_t>(k) * p + p0 + q) : 0.0f;
+  }
+
+  const float nan = __int_as_float(0x7fc00000);
+  int4 next = load_idx<kVec>(idx, static_cast<int64_t>(n0) * p + p0, live);
+  for (int e = n0; e < n1; ++e) {
+    const int4 cur = next;
+    if (e + 1 < n1) next = load_idx<kVec>(idx, static_cast<int64_t>(e + 1) * p + p0, live);
+    const int r[4] = {cur.x, cur.y, cur.z, cur.w};
+    bool bad[4];
+    Row row[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      bad[q] = r[q] < 0 || r[q] >= rows;
+      row[q] = load_row(table, bad[q] ? 0 : r[q]);
+    }
+    float o[12];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
+#pragma unroll
+      for (int k = 0; k < 6; ++k) {
+        a0 += f[k][q] * coeff(row[q], 3 * k + 0);
+        a1 += f[k][q] * coeff(row[q], 3 * k + 1);
+        a2 += f[k][q] * coeff(row[q], 3 * k + 2);
+      }
+      o[3 * q + 0] = bad[q] ? nan : a0;
+      o[3 * q + 1] = bad[q] ? nan : a1;
+      o[3 * q + 2] = bad[q] ? nan : a2;
+    }
+    float* dst = out + (static_cast<int64_t>(e) * p + p0) * 3;
+    if (kVec) {
+      float4* d4 = reinterpret_cast<float4*>(dst);
+      d4[0] = make_float4(o[0], o[1], o[2], o[3]);
+      d4[1] = make_float4(o[4], o[5], o[6], o[7]);
+      d4[2] = make_float4(o[8], o[9], o[10], o[11]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 12; ++i)
+        if (i < 3 * live) dst[i] = o[i];
     }
   }
-  float* o = out + g * 3;
-  o[0] = a0;
-  o[1] = a1;
-  o[2] = a2;
 }
 
 }  // namespace
@@ -64,12 +153,15 @@ lut_shade_kernel(const int32_t* __restrict__ idx, const float* __restrict__ feat
 extern "C" int tacex_lut_shade(const int32_t* idx, const float* feats, const float* table,
                                float* out, int n, int p, int rows, void* stream) {
   if (n < 0 || p < 1 || rows < 1) return cudaErrorInvalidValue;
-  const int64_t total = static_cast<int64_t>(n) * p;
-  if (total == 0) return cudaSuccess;
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  lut_shade_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(idx, feats, table, out, total, p,
-                                                          rows);
+  if (n == 0) return cudaSuccess;
+  const int quads = (p + 3) / 4;
+  const int threads = min(kMaxThreads, (quads + 31) / 32 * 32);
+  const dim3 grid((quads + threads - 1) / threads, (n + kEnvsPerBlock - 1) / kEnvsPerBlock);
+  if (grid.y > 65535 || reinterpret_cast<uintptr_t>(table) % 16 != 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p % 4 == 0 && reinterpret_cast<uintptr_t>(idx) % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0)
+    lut_shade_kernel<true><<<grid, threads, 0, s>>>(idx, feats, table, out, n, p, rows);
+  else
+    lut_shade_kernel<false><<<grid, threads, 0, s>>>(idx, feats, table, out, n, p, rows);
   return cudaGetLastError();
 }

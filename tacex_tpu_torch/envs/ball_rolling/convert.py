@@ -3,8 +3,9 @@
 ``state_from_numpy`` takes the leaves of a ``BallRollingState`` of the JAX
 package as a nested dict of numpy arrays (field name -> array, with nested
 dicts for ``arm``, ``sensor`` and ``dr``) and returns the port's state on
-``device``, so that both envs can start from one state. The JAX state's
-random key has no counterpart and is ignored.
+``device`` (the card unless the caller asks for the CPU), so that both
+envs can start from one state. The JAX state's random key has no
+counterpart and is ignored.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ...core.device import DEFAULT_DEVICE, resolve
 from ...physics.rigid.franka import ArmState
 from ...sensors.gelsight.sensor import GelSightSensorState
 from .env import BallRollingState, DomainRandomization
@@ -30,10 +32,10 @@ def _build(cls, leaves: dict, device, nested: dict):
     return cls(**kwargs)
 
 
-def state_from_numpy(leaves: dict, device="cpu") -> BallRollingState:
+def state_from_numpy(leaves: dict, device=DEFAULT_DEVICE) -> BallRollingState:
     return _build(
         BallRollingState,
         leaves,
-        device,
+        resolve(device),
         {"arm": ArmState, "sensor": GelSightSensorState, "dr": DomainRandomization},
     )

@@ -24,6 +24,7 @@ import torch
 
 from ...core import maths
 from ...core.config import configclass
+from ...core.device import DEFAULT_DEVICE
 from ...physics.rigid import contact, franka
 from ...render.depth_camera import SdfScene, render_depth_batch
 from ...sensors.gelsight.fots import marker_motion as fots
@@ -147,7 +148,7 @@ class BallRollingState:
 class BallRollingEnv(DirectRLEnv):
     cfg: BallRollingEnvCfg
 
-    def __init__(self, cfg: BallRollingEnvCfg | None = None, device="cpu"):
+    def __init__(self, cfg: BallRollingEnvCfg | None = None, device=DEFAULT_DEVICE):
         super().__init__(cfg or BallRollingEnvCfg(), device=device)
         c = self.cfg
         dev = self.device

@@ -14,6 +14,7 @@ from typing import Any, Callable
 import torch
 
 from ..core.config import configclass
+from ..core.device import DEFAULT_DEVICE, resolve
 
 
 @configclass
@@ -39,9 +40,9 @@ class DirectRLEnv:
 
     cfg: DirectRLEnvCfg
 
-    def __init__(self, cfg: DirectRLEnvCfg, device="cpu"):
+    def __init__(self, cfg: DirectRLEnvCfg, device=DEFAULT_DEVICE):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
 
@@ -67,7 +68,7 @@ def register(env_id: str, env_class: type, default_cfg_factory: Callable[[], Dir
     _REGISTRY[env_id] = (env_class, default_cfg_factory)
 
 
-def make(env_id: str, cfg: DirectRLEnvCfg | None = None, device="cpu", **overrides) -> DirectRLEnv:
+def make(env_id: str, cfg: DirectRLEnvCfg | None = None, device=DEFAULT_DEVICE, **overrides) -> DirectRLEnv:
     if env_id not in _REGISTRY:
         raise KeyError(f"Unknown env id '{env_id}'. Registered: {sorted(_REGISTRY)}")
     env_class, cfg_factory = _REGISTRY[env_id]

@@ -1,6 +1,7 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled with ``nvcc`` for Hopper (``sm_90a``)
+Every ``csrc/*.cu`` file is compiled with ``nvcc`` for Hopper (``sm_90a``),
+one ``nvcc`` per source, all started together, and the objects are linked
 into one shared library with a plain C interface, loaded with ``ctypes``.
 The build runs at first use, into ``build/kernels/`` at the repository root,
 and the file name carries a hash of the sources and flags, so an edited
@@ -24,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -70,21 +71,35 @@ def build() -> Path:
         return lib
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     try:
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu],
+        cu = [s for s in _sources() if s.suffix == ".cu"]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(work / f"{s.stem}.o"), str(s)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for s in cu
+        ]
+        reports = []
+        for src, proc in zip(cu, procs):
+            text, _ = proc.communicate()
+            reports.append((src.name, text, proc.returncode))
+        log = "".join(f"== {name}\n{text}" for name, text, _ in reports)
+        lib.with_suffix(".log").write_text(log)
+        failed = [name for name, _, rc in reports if rc != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
+        tmp = work / lib.name
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *(str(work / f"{s.stem}.o") for s in cu)],
             capture_output=True, text=True, check=False,
         )
-        lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
         os.replace(tmp, lib)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(work, ignore_errors=True)
     return lib
 
 
@@ -95,8 +110,8 @@ def load_library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.tacex_deformation_pyramid.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     lib.tacex_deformation_pyramid.restype = i32
-    lib.tacex_deformation_pyramid_smem.argtypes = [i32, i32]
-    lib.tacex_deformation_pyramid_smem.restype = ctypes.c_size_t
+    lib.tacex_deformation_pyramid_plan.argtypes = [i32, i32, ptr, ptr, ptr, i32]
+    lib.tacex_deformation_pyramid_plan.restype = i32
     lib.tacex_lut_shade.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.tacex_lut_shade.restype = i32
     return lib

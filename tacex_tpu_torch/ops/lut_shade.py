@@ -13,6 +13,8 @@ import torch
 
 from . import _build
 
+MAX_ENVS = 65535 * 8  # grid.y blocks of 8 envs each
+
 
 def lut_shade_plain(idx: torch.Tensor, feats: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """``out[n, p, c] = sum_k feats[k, p] * table[idx[n, p], 3 k + c]``."""
@@ -41,6 +43,10 @@ def lut_shade(idx: torch.Tensor, feats: torch.Tensor, table: torch.Tensor) -> to
         raise ValueError("idx, feats and table must be on one device")
     if not (idx.is_contiguous() and feats.is_contiguous() and table.is_contiguous()):
         raise ValueError("idx, feats and table must be contiguous")
+    if table.data_ptr() % 16 != 0:
+        raise ValueError("table must be 16-byte aligned (its rows are read as float4)")
+    if n > MAX_ENVS:
+        raise ValueError(f"the shading kernel takes at most {MAX_ENVS} envs, got {n}")
     lib = _build.load_library()
     out = torch.empty((n, p, 3), dtype=torch.float32, device=idx.device)
     with torch.cuda.device(idx.device):

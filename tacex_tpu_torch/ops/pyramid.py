@@ -18,7 +18,6 @@ from .blur import gaussian_blur, gaussian_taps
 
 MAX_LEVELS = 8
 MAX_TAPS = 768
-SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 
 
 def deformation_pyramid_plain(joined: torch.Tensor, mask: torch.Tensor, sigmas) -> torch.Tensor:
@@ -51,12 +50,28 @@ def _packed_taps(sigmas: tuple, h: int, w: int) -> tuple[np.ndarray, np.ndarray,
     return flat, np.asarray(ky, np.int32), np.asarray(kx, np.int32)
 
 
+@functools.lru_cache(maxsize=32)
+def _kernel_args(sigmas: tuple, h: int, w: int) -> tuple:
+    """The packed taps as the kernel takes them (pointers, level count),
+    after checking that the kernel takes an ``h`` x ``w`` image; the arrays
+    stay alive in the cache beside their pointers."""
+    taps, ky, kx = _packed_taps(sigmas, h, w)
+    lib = _build.load_library()
+    if lib.tacex_deformation_pyramid_plan(h, w, taps.ctypes.data, ky.ctypes.data, kx.ctypes.data, len(ky)) < 0:
+        raise ValueError(
+            f"the pyramid kernel does not take a {h}x{w} image with these sigmas: "
+            "no cluster of 8 CTAs holds its bands and halos in shared memory"
+        )
+    return (taps, ky, kx), taps.ctypes.data, ky.ctypes.data, kx.ctypes.data, len(ky)
+
+
 def deformation_pyramid(joined: torch.Tensor, mask: torch.Tensor, sigmas) -> torch.Tensor:
     """(N, H, W) f32 ``joined`` and bool ``mask`` -> (N, H, W) f32.
 
     ``sigmas``: ``((sigma_x, sigma_y), ...)``, the pyramid levels then the
     final blur. A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel or raises.
+    the kernel or raises: a ``ValueError`` names an image the kernel cannot
+    hold (240x320 is taken; 480x640 with the sensor's sigmas is not).
     """
     sigmas = tuple((float(sx), float(sy)) for sx, sy in sigmas)
     if joined.device.type == "cpu":
@@ -70,17 +85,13 @@ def deformation_pyramid(joined: torch.Tensor, mask: torch.Tensor, sigmas) -> tor
     if not (joined.is_contiguous() and mask.is_contiguous()):
         raise ValueError("joined and mask must be contiguous")
     n, h, w = joined.shape
-    taps, ky, kx = _packed_taps(sigmas, h, w)
+    _, taps, ky, kx, levels = _kernel_args(sigmas, h, w)
     lib = _build.load_library()
-    smem = lib.tacex_deformation_pyramid_smem(h, w)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"a {h}x{w} image needs {smem} B of shared memory, more than {SMEM_LIMIT}")
     out = torch.empty_like(joined)
     with torch.cuda.device(joined.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.tacex_deformation_pyramid(
-            joined.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            taps.ctypes.data, ky.ctypes.data, kx.ctypes.data, len(ky), n, h, w, stream,
+            joined.data_ptr(), mask.data_ptr(), out.data_ptr(), taps, ky, kx, levels, n, h, w, stream
         )
     if err != 0:
         raise RuntimeError(f"deformation_pyramid kernel launch failed: CUDA error {err}")

@@ -14,14 +14,17 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.device import DEFAULT_DEVICE, resolve
+
 
 def _conv_out(size: int, k: int, s: int) -> int:
     return (size - k) // s + 1
 
 
 class VisionEncoder(nn.Module):
-    def __init__(self, in_channels: int, device=None):
+    def __init__(self, in_channels: int, device=DEFAULT_DEVICE):
         super().__init__()
+        device = resolve(device)
         self.conv0 = nn.Conv2d(in_channels, 16, 4, stride=2, device=device)
         self.conv1 = nn.Conv2d(16, 4, 3, stride=1, device=device)
 
@@ -47,9 +50,10 @@ class ActorCritic(nn.Module):
         initial_log_std: float = 0.0,
         min_log_std: float = -20.0,
         max_log_std: float = 2.0,
-        device=None,
+        device=DEFAULT_DEVICE,
     ):
         super().__init__()
+        device = resolve(device)
         self.min_log_std, self.max_log_std = min_log_std, max_log_std
         h, w, c = vision_shape
         self.pi_encoder = VisionEncoder(c, device=device)

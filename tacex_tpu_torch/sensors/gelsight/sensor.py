@@ -21,6 +21,7 @@ import dataclasses
 
 import torch
 
+from ...core.device import DEFAULT_DEVICE, resolve
 from ...ops.resize import resize_linear
 from .fots import marker_motion as fots
 from .sensor_cfg import GelSightSensorCfg
@@ -47,10 +48,10 @@ class GelSightSensor:
     """Holds static config and calibration on ``device``; ``update`` and
     ``reset`` return new state and leave their inputs alone."""
 
-    def __init__(self, cfg: GelSightSensorCfg, num_envs: int, device="cpu"):
+    def __init__(self, cfg: GelSightSensorCfg, num_envs: int, device=DEFAULT_DEVICE):
         self.cfg = cfg
         self.num_envs = num_envs
-        self.device = torch.device(device)
+        self.device = resolve(device)
 
         self.camera_res = tuple(cfg.sensor_camera_cfg.resolution)  # (w, h)
         ocfg = cfg.optical_sim_cfg

@@ -1,0 +1,69 @@
+"""The port runs on the card unless the caller asks for the CPU.
+
+Every entry point defaults to ``device="cuda"``; without a card, calling one
+without ``device=`` raises instead of returning a CPU object. This file
+imports neither jax nor the JAX package.
+"""
+
+import inspect
+
+import pytest
+import torch
+
+from tacex_tpu_torch import envs
+from tacex_tpu_torch.core import device as tdevice
+from tacex_tpu_torch.envs.ball_rolling.convert import state_from_numpy
+from tacex_tpu_torch.envs.ball_rolling.env import BallRollingEnv
+from tacex_tpu_torch.envs.base import DirectRLEnv
+from tacex_tpu_torch.rl.networks import ActorCritic, VisionEncoder
+from tacex_tpu_torch.sensors.gelsight.sensor import GelSightSensor
+from tacex_tpu_torch.sensors.gelsight.sensor_cfg import gelsight_mini_cfg
+
+ENV_ID = "TacEx-Ball-Rolling-Taxim-Fots-v0"
+
+ENTRY_POINTS = {
+    "envs.make": envs.make,
+    "DirectRLEnv": DirectRLEnv,
+    "BallRollingEnv": BallRollingEnv,
+    "GelSightSensor": GelSightSensor,
+    "state_from_numpy": state_from_numpy,
+    "ActorCritic": ActorCritic,
+    "VisionEncoder": VisionEncoder,
+}
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_defaults_to_the_card(name):
+    assert inspect.signature(ENTRY_POINTS[name]).parameters["device"].default == "cuda"
+
+
+def test_make_without_a_card_raises(no_card):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        envs.make(ENV_ID, num_envs=2)
+
+
+@pytest.mark.parametrize(
+    "build",
+    [
+        lambda: GelSightSensor(gelsight_mini_cfg(camera_resolution=(32, 24), tactile_img_res=(32, 24)), num_envs=2),
+        lambda: ActorCritic(14, (24, 32, 3), 6),
+        lambda: VisionEncoder(3),
+        lambda: state_from_numpy({}),
+    ],
+    ids=["GelSightSensor", "ActorCritic", "VisionEncoder", "state_from_numpy"],
+)
+def test_other_entry_points_without_a_card_raise(no_card, build):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build()
+
+
+def test_cpu_on_request():
+    env = envs.make(ENV_ID, num_envs=2, device="cpu")
+    assert env.device.type == "cpu" and env.sensor.device.type == "cpu"
+    assert tdevice.resolve("cpu") == torch.device("cpu")

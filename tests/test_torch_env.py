@@ -94,10 +94,10 @@ def _jax_gradients(env, state):
 @pytest.fixture(scope="module")
 def rollout():
     env_j = jenvs.make(ENV_ID, **_overrides())
-    env_t = tenvs.make(ENV_ID, **_overrides())
+    env_t = tenvs.make(ENV_ID, device="cpu", **_overrides())
     st_j = env_j.init_state(jax.random.PRNGKey(0))
     st_j, obs_j = jax.jit(env_j.reset_all)(st_j)
-    st_t = state_from_numpy(_tree_to_numpy(st_j))
+    st_t = state_from_numpy(_tree_to_numpy(st_j), device="cpu")
     # small random motions under a steady press: every env stays in contact
     # and none finishes within the steps
     actions = np.random.default_rng(0).uniform(-0.02, 0.02, (STEPS, N, 6)).astype(np.float32)
@@ -152,7 +152,7 @@ def test_actor_critic_from_flax_params(rollout):
     params = net_j.init(jax.random.PRNGKey(1), {k: jnp.asarray(v) for k, v in obs.items()})
     mean_j, log_std_j, value_j = net_j.apply(params, {k: jnp.asarray(v) for k, v in obs.items()})
 
-    net_t = ActorCritic(14, (24, 32, 3), 6)
+    net_t = ActorCritic(14, (24, 32, 3), 6, device="cpu")
     net_t.load_state_dict(actor_critic_from_flax(jax.tree_util.tree_map(np.asarray, params)))
     with torch.no_grad():
         mean_t, log_std_t, value_t = net_t({k: torch.from_numpy(v.copy()) for k, v in obs.items()})

@@ -15,16 +15,25 @@ import pytest
 import torch
 
 from _torch_bins import setup_torch
+from tacex_tpu_torch.ops import _build
 from tacex_tpu_torch.ops import lut_shade as tlut
 from tacex_tpu_torch.ops import pyramid as tpyr
 from tacex_tpu_torch.sensors.gelsight.taxim import calib as tcalib
 
 setup_torch()
 
-# the slice's pyramid at 24x32: six pyramid levels, then the final blur
+# the sensor's pyramid at h x w: six pyramid levels, then the final blur
 _SIM = tcalib.load_params(tcalib.default_calib_folder())[0]
-SLICE_SIGMAS_24x32 = tuple(_SIM.deform_pyramid_sigma((24, 32))) + (_SIM.deform_final_sigma((24, 32)),)
+
+
+def sensor_sigmas(hw):
+    return tuple(_SIM.deform_pyramid_sigma(hw)) + (_SIM.deform_final_sigma(hw),)
+
+
+SLICE_SIGMAS_24x32 = sensor_sigmas((24, 32))
 SIGMAS = ((3.0, 2.2), (1.5, 1.1), (0.8, 0.6), (1.0, 0.75))
+# the design each image size below takes: 0 a warp per image, else the CTAs of its cluster
+PLANS = {(24, 32): 0, (48, 64): 1, (120, 160): 2, (180, 240): 4, (240, 320): 8}
 
 pytestmark = pytest.mark.cuda
 
@@ -36,8 +45,24 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("shape,sigmas", [((64, 24, 32), SLICE_SIGMAS_24x32), ((5, 48, 64), SIGMAS)])
+@pytest.mark.parametrize(
+    "shape,sigmas",
+    [
+        ((64, 24, 32), SLICE_SIGMAS_24x32),  # a warp per image
+        ((5, 48, 64), SIGMAS),  # a one-CTA cluster per image
+        ((3, 24, 32), SLICE_SIGMAS_24x32),  # N not a multiple of the 8 images a block holds
+        ((2, 240, 320), sensor_sigmas((240, 320))),  # the default sensor: a cluster of 8 CTAs
+        ((2, 120, 160), sensor_sigmas((120, 160))),  # a cluster of 2 CTAs
+        ((2, 180, 240), sensor_sigmas((180, 240))),  # a cluster of 4 CTAs
+    ],
+)
 def test_pyramid_kernel_matches_plain(cuda, shape, sigmas):
+    h, w = shape[1:]
+    taps, ky, kx = tpyr._packed_taps(tuple((float(sx), float(sy)) for sx, sy in sigmas), h, w)
+    plan = _build.load_library().tacex_deformation_pyramid_plan(
+        h, w, taps.ctypes.data, ky.ctypes.data, kx.ctypes.data, len(ky)
+    )
+    assert plan == PLANS[(h, w)]
     rng = np.random.default_rng(2)
     joined = torch.from_numpy(rng.uniform(-1, 2, shape).astype(np.float32)).to(cuda)
     mask = torch.from_numpy(rng.random(shape) < 0.2).to(cuda)
@@ -64,6 +89,27 @@ def test_lut_shade_kernel_matches_plain(cuda):
     torch.testing.assert_close(
         tlut.dir_row_shade(idir, feats, tabs), tlut.lut_shade_plain(idir, feats, tabs.T), atol=1e-5, rtol=0
     )
+
+
+def test_pyramid_kernel_refuses_an_image_it_cannot_hold(cuda):
+    x = torch.zeros((1, 480, 640), device=cuda)
+    with pytest.raises(ValueError, match="480x640"):
+        tpyr.deformation_pyramid(x, x.bool(), sensor_sigmas((480, 640)))
+
+
+def test_lut_shade_kernel_ragged_pixels(cuda):
+    """P = 766: the last 4-pixel group holds 2 pixels, and index rows are not
+    16-byte aligned; one env. Rows outside the table give NaN."""
+    rng = np.random.default_rng(6)
+    n, p, rows = 1, 766, 15625
+    idx = torch.from_numpy(rng.integers(0, rows, (n, p)).astype(np.int32)).to(cuda)
+    feats = torch.from_numpy(rng.normal(size=(6, p)).astype(np.float32)).to(cuda)
+    table = torch.from_numpy(rng.normal(size=(rows, 18)).astype(np.float32)).to(cuda)
+    torch.testing.assert_close(tlut.lut_shade(idx, feats, table), tlut.lut_shade_plain(idx, feats, table),
+                               atol=1e-5, rtol=0)
+    idx[0, -1] = rows
+    out = tlut.lut_shade(idx, feats, table)
+    assert torch.isnan(out[0, -1]).all() and torch.isfinite(out[0, :-1]).all()
 
 
 def test_wrappers_reject_bad_inputs_on_the_card(cuda):

@@ -15,6 +15,7 @@ SLICE_MODULES = [
     "tacex_tpu_torch",
     "tacex_tpu_torch.core.config",
     "tacex_tpu_torch.core.maths",
+    "tacex_tpu_torch.core.device",
     "tacex_tpu_torch.ops.blur",
     "tacex_tpu_torch.ops.resize",
     "tacex_tpu_torch.ops.pyramid",
@@ -43,7 +44,7 @@ def test_import_loads_no_jax():
         f"for m in {SLICE_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "from tacex_tpu_torch import envs\n"
-        "envs.make('TacEx-Ball-Rolling-Taxim-Fots-v0', num_envs=2)\n"
+        "envs.make('TacEx-Ball-Rolling-Taxim-Fots-v0', num_envs=2, device='cpu')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tacex_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -72,3 +73,33 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
     (csrc / "a.cu").write_text("// two\n")
     assert _build.library_path() != first
     assert first.parent == _build.BUILD_DIR and first.name.startswith("libtacex_kernels_")
+
+
+def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
+    """One nvcc per source with -c, then one -shared link of the objects."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("a.cu", "b.cu"):
+        (csrc / name).write_text(f"// {name}\n")
+    calls = tmp_path / "calls.txt"
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text(
+        f"#!{sys.executable}\n"
+        "import sys\n"
+        f"open({str(calls)!r}, 'a').write(' '.join(sys.argv[1:]) + '\\n')\n"
+        "open(sys.argv[sys.argv.index('-o') + 1], 'w').write('obj')\n"
+        "print('ptxas info : Used 8 registers')\n"
+    )
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    lib = _build.build()
+    assert lib.is_file() and lib.parent == tmp_path / "kernels"
+    lines = calls.read_text().splitlines()
+    compiles = [line for line in lines if " -c " in line]
+    assert len(compiles) == 2 and all("sm_90a" in line for line in compiles)
+    assert len(lines) == 3 and "-shared" in lines[-1] and lines[-1].count(".o") == 2
+    assert "a.cu" in lib.with_suffix(".log").read_text() and "Used 8 registers" in lib.with_suffix(".log").read_text()
+    assert sorted(p.name for p in (tmp_path / "kernels").iterdir()) == sorted([lib.name, lib.with_suffix(".log").name])

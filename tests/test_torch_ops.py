@@ -33,6 +33,8 @@ setup_torch()
 # the slice's pyramid at 24x32: six pyramid levels, then the final blur
 _SIM = tcalib.load_params(tcalib.default_calib_folder())[0]
 SLICE_SIGMAS_24x32 = tuple(_SIM.deform_pyramid_sigma((24, 32))) + (_SIM.deform_final_sigma((24, 32)),)
+# the default 320x240 sensor's pyramid (61-tap first level)
+SENSOR_SIGMAS_240x320 = tuple(_SIM.deform_pyramid_sigma((240, 320))) + (_SIM.deform_final_sigma((240, 320)),)
 SIGMAS = ((3.0, 2.2), (1.5, 1.1), (0.8, 0.6), (1.0, 0.75))
 
 
@@ -74,7 +76,10 @@ class TestBlur:
 
 
 class TestPyramid:
-    @pytest.mark.parametrize("shape,sigmas", [((3, 24, 32), SLICE_SIGMAS_24x32), ((5, 48, 64), SIGMAS)])
+    @pytest.mark.parametrize(
+        "shape,sigmas",
+        [((3, 24, 32), SLICE_SIGMAS_24x32), ((5, 48, 64), SIGMAS), ((1, 240, 320), SENSOR_SIGMAS_240x320)],
+    )
     def test_plain_matches_pallas_interpret_and_xla(self, shape, sigmas):
         rng = np.random.default_rng(1)
         joined = rng.uniform(-1, 2, shape).astype(np.float32)

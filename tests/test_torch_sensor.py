@@ -106,7 +106,7 @@ def test_sensor_update_two_frames(camera_res):
     cfg_j = jcfg.gelsight_mini_cfg(camera_resolution=camera_res, tactile_img_res=tactile_res)
     cfg_t = tcfg.gelsight_mini_cfg(camera_resolution=camera_res, tactile_img_res=tactile_res)
     sen_j = jsensor_mod.GelSightSensor(cfg_j, num_envs=n)
-    sen_t = tsensor_mod.GelSightSensor(cfg_t, num_envs=n)
+    sen_t = tsensor_mod.GelSightSensor(cfg_t, num_envs=n, device="cpu")
     st_j, st_t = sen_j.init_state(), sen_t.init_state()
     update_j = jax.jit(sen_j.update)
     nb = sen_t.calib.sensor_params.num_bins
@@ -143,7 +143,7 @@ def test_sensor_update_object_pose_variant():
     cfg_j = jcfg.gelsight_mini_cfg(camera_resolution=res, tactile_img_res=res)
     cfg_t = tcfg.gelsight_mini_cfg(camera_resolution=res, tactile_img_res=res)
     sen_j = jsensor_mod.GelSightSensor(cfg_j, num_envs=n)
-    sen_t = tsensor_mod.GelSightSensor(cfg_t, num_envs=n)
+    sen_t = tsensor_mod.GelSightSensor(cfg_t, num_envs=n, device="cpu")
     st_j, st_t = sen_j.init_state(), sen_t.init_state()
     update_j = jax.jit(sen_j.update)
     pos = np.array([[0.5, -1.0], [-2.0, 0.3], [0.0, 0.0]], np.float32)
@@ -163,7 +163,7 @@ def test_sensor_update_object_pose_variant():
 
 def test_reset_clears_masked_envs():
     cfg = tcfg.gelsight_mini_cfg(camera_resolution=(32, 24), tactile_img_res=(32, 24))
-    sen = tsensor_mod.GelSightSensor(cfg, num_envs=2)
+    sen = tsensor_mod.GelSightSensor(cfg, num_envs=2, device="cpu")
     st = tsensor_mod.GelSightSensorState(torch.ones(2, 3), torch.ones(2, 3), torch.full((2,), 3, dtype=torch.int32))
     st = sen.reset(st, torch.tensor([True, False]))
     assert st.traj_count.tolist() == [0, 3] and st.traj_start[0].abs().sum() == 0 and st.traj_curr[1].sum() == 3
