@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's flagship env step once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port once on one NVIDIA GPU: the flagship env step,
+PPO training on it, the other ball-rolling tasks and every shading path.
 
     python3 chip_smoke.py
 
@@ -32,7 +33,24 @@ package beside this file; it imports nothing of JAX. In order it:
      checks every output is finite, that the gel is pressed, and that both
      kernels were launched on every step;
   6. steps the env at 8 envs on the card (kernels) and on the CPU (plain
-     versions) from one state and holds the two to each other.
+     versions) from one state and holds the two to each other;
+  7. trains: ``PPO`` on the flagship at 4096 envs under its tuned config
+     (rollouts of 64, 4 epochs of 32 minibatches of 8,192 samples), one
+     warm-up iteration and two timed ones, the second under sync-debug
+     "error"; checks that loss and reward are finite, every parameter
+     moved, the step count, the learning rate's range and that both kernels
+     ran once per rollout step; prints seconds per iteration, env-steps/s,
+     the rollout/update split (CUDA events) and peak memory;
+  8. trains ``TacEx-Ball-Rolling-Privileged-v0`` at 4096 envs under its state
+     config for 10 iterations and prints each one's reward per step;
+  9. resets and steps each of the other five ball-rolling ids at 256 envs
+     under sync-debug "error", checks the observation shapes, and holds the
+     two IK resets' joint angles to the same solve on the CPU (atol 1e-4);
+ 10. at 320x240 on 16 pressed envs, holds ``render(with_shadow=True)``,
+     ``shade(interp="bilinear")`` and ``render(compact_capacity=16384)`` on
+     the card to the same calls on the CPU, times each, checks the compact
+     call launched the shading kernel, and that the pyramid wrapper refuses
+     a CUDA input that requires grad.
 
 The second-to-last line is a JSON object with each kernel's launches on
 each path, its error against the plain version, its times, bound and share
@@ -55,6 +73,19 @@ import torch
 ENV_ID = "TacEx-Ball-Rolling-Taxim-Fots-v0"
 NUM_ENVS = 4096
 SENSOR_ENVS = 256
+PRIVILEGED_ID = "TacEx-Ball-Rolling-Privileged-v0"
+OTHER_IDS = {  # id -> vision obs shape (None: proprio only)
+    "TacEx-Ball-Rolling-Tactile-RGB-v0": (24, 32, 3),
+    "TacEx-Ball-Rolling-Tactile-Depth-v1": (24, 32, 1),
+    PRIVILEGED_ID: None,
+    "TacEx-Ball-Rolling-Privileged-Reset-with-IK-v0": None,
+    "TacEx-Ball-Rolling-Privileged-Without-Reaching-v0": None,
+}
+TRAIN_ITERATIONS = 3  # one warm-up, two timed
+PRIVILEGED_ITERATIONS = 10
+OTHER_ENVS = 256
+SHADING_ENVS = 16
+COMPACT_CAPACITY = 16384
 WARMUP_STEPS = 2
 STEPS = 10
 KERNEL_ATOL = 1e-5
@@ -236,6 +267,23 @@ def kernel_phase(env, state, device, sensor_frame, sensor_lut) -> dict:
     return {"deformation_pyramid": k1, "lut_shade": k2}
 
 
+def _counters():
+    from tacex_tpu_torch.ops import lut_shade as K2
+    from tacex_tpu_torch.ops import pyramid as K1
+
+    return K1.deformation_pyramid, K2.lut_shade
+
+
+def _reset_counters() -> None:
+    for fn in _counters():
+        fn.launches = 0
+
+
+def _read_counters() -> dict:
+    k1, k2 = _counters()
+    return {"deformation_pyramid": k1.launches, "lut_shade": k2.launches}
+
+
 def _press_depth(n: int, device) -> torch.Tensor:
     """(n, 240, 320) camera depth (m) of a 4 mm sphere pressed 1.2-1.6 mm
     into the gel, as in the verify recipe, its centre moved per env."""
@@ -268,8 +316,6 @@ def sensor_phase(device) -> dict:
     one update counted, its time, and 2 envs held to the CPU's."""
     sys.path.insert(0, str(REPO / "tests"))
     from _torch_bins import NOISE_FLOOR, assert_bin_rule, bin_coords, lut_spread
-    from tacex_tpu_torch.ops import lut_shade as K2
-    from tacex_tpu_torch.ops import pyramid as K1
     from tacex_tpu_torch.sensors.gelsight.sensor import GelSightSensor
     from tacex_tpu_torch.sensors.gelsight.sensor_cfg import gelsight_mini_cfg
 
@@ -278,10 +324,9 @@ def sensor_phase(device) -> dict:
     depth = _press_depth(SENSOR_ENVS, device)
     state, out = sensor.update(sensor.init_state(), depth)
     torch.cuda.synchronize()
-    K1.deformation_pyramid.launches = 0
-    K2.lut_shade.launches = 0
+    _reset_counters()
     state, out = sensor.update(state, depth)
-    launches = {"deformation_pyramid": K1.deformation_pyramid.launches, "lut_shade": K2.lut_shade.launches}
+    launches = _read_counters()
     torch.cuda.synchronize()
     for name, count in launches.items():
         if count < 1:
@@ -355,22 +400,18 @@ def slice_phase(env, state, obs, policy) -> dict:
     """The main path: policy forward + env step. The counted steps run under
     sync-debug 'error' with the launch counters reset just before; the timed
     steps follow with the debug mode off."""
-    from tacex_tpu_torch.ops import lut_shade as K2
-    from tacex_tpu_torch.ops import pyramid as K1
-
     for _ in range(WARMUP_STEPS):
         state, obs, *_ = env.step(state, _policy_action(policy, obs))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    K1.deformation_pyramid.launches = 0
-    K2.lut_shade.launches = 0
+    _reset_counters()
     torch.cuda.set_sync_debug_mode("error")
     try:
         for _ in range(STEPS):
             state, obs, reward, term, trunc, info = env.step(state, _policy_action(policy, obs))
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    launches = {"deformation_pyramid": K1.deformation_pyramid.launches, "lut_shade": K2.lut_shade.launches}
+    launches = _read_counters()
     torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -438,6 +479,273 @@ def reference_phase(device) -> None:
             raise AssertionError("the card's env step disagrees with the CPU's")
 
 
+def _event_timed(fn, spans: list):
+    """``fn`` with a pair of CUDA events recorded around each call."""
+    def wrapped(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    return wrapped
+
+
+def train_phase(device) -> dict:
+    """PPO on the flagship at full width: the trainer a user would launch
+    with ``scripts/train_torch.py``, through ``PPO.train_step``."""
+    from tacex_tpu_torch import envs
+    from tacex_tpu_torch.rl import PPO
+    from tacex_tpu_torch.rl.agents import agent_cfg_for
+
+    cfg = agent_cfg_for(ENV_ID, "ppo")
+    env = envs.make(ENV_ID, num_envs=NUM_ENVS, device=device)
+    ppo = PPO(env, cfg)
+    ppo.init(0)
+    before = [p.detach().clone() for p in ppo.params]
+    rollouts, updates = [], []
+    ppo.rollout, ppo.update = _event_timed(ppo.rollout, rollouts), _event_timed(ppo.update, updates)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    seconds = []
+    for it in range(TRAIN_ITERATIONS):
+        guarded = it == TRAIN_ITERATIONS - 1
+        t0 = time.perf_counter()
+        if guarded:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            metrics = ppo.train_step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    launches = _read_counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    metrics = {k: float(v) for k, v in metrics.items()}
+
+    steps_per_iter = cfg.rollouts * NUM_ENVS
+    for name in ("loss", "reward_per_step"):
+        if not np.isfinite(metrics[name]):
+            raise AssertionError(f"train: {name} is {metrics[name]}")
+    if not all(bool((a != b).any()) for a, b in zip(ppo.params, before)):
+        raise AssertionError("train: a parameter tensor did not change")
+    if ppo.steps != TRAIN_ITERATIONS * steps_per_iter:
+        raise AssertionError(f"train: {ppo.steps} env steps, expected {TRAIN_ITERATIONS * steps_per_iter}")
+    if not cfg.lr_min <= metrics["lr"] <= cfg.lr_max:
+        raise AssertionError(f"train: lr {metrics['lr']} outside [{cfg.lr_min}, {cfg.lr_max}]")
+    for name, count in launches.items():
+        if count != TRAIN_ITERATIONS * cfg.rollouts:
+            raise AssertionError(f"train: {name} launched {count} times, expected {TRAIN_ITERATIONS * cfg.rollouts}")
+
+    rollout_s = [s.elapsed_time(e) / 1e3 for s, e in rollouts]
+    update_s = [s.elapsed_time(e) / 1e3 for s, e in updates]
+    timed = seconds[1:]
+    sec_per_iter = sum(timed) / len(timed)
+    mb = steps_per_iter // cfg.mini_batches
+    print(f"train: {ENV_ID}, {NUM_ENVS} envs, rollouts {cfg.rollouts}, {cfg.learning_epochs} epochs x "
+          f"{cfg.mini_batches} minibatches of {mb}, hidden {tuple(cfg.hidden)}; iterations (s): "
+          f"{[round(x, 3) for x in seconds]} (first is the warm-up, last ran with no host sync)")
+    print(f"train: {sec_per_iter:.3f} s/iteration = {steps_per_iter / sec_per_iter:.1f} env-steps/s; rollout "
+          f"{[round(x, 3) for x in rollout_s]} s, update {[round(x, 3) for x in update_s]} s (CUDA events); "
+          f"launches {launches}; peak memory {peak_gb:.3f} GB; loss {metrics['loss']:.5f}, "
+          f"reward/step {metrics['reward_per_step']:.5f}, lr {metrics['lr']:.3e}")
+    return dict(launches=launches, sec_per_iter=sec_per_iter, env_steps_per_s=steps_per_iter / sec_per_iter,
+                rollout_s=sum(rollout_s[1:]) / len(timed), update_s=sum(update_s[1:]) / len(timed), peak_gb=peak_gb)
+
+
+def privileged_train_phase(device) -> dict:
+    """PPO on the privileged (state-vector) task at 4096 envs: learning is
+    asserted by the CPU tests under a fixed seed, here only that it runs,
+    stays finite and moves its parameters."""
+    from tacex_tpu_torch import envs
+    from tacex_tpu_torch.rl import PPO
+    from tacex_tpu_torch.rl.agents import agent_cfg_for
+
+    cfg = agent_cfg_for(PRIVILEGED_ID, "ppo")
+    ppo = PPO(envs.make(PRIVILEGED_ID, num_envs=NUM_ENVS, device=device), cfg)
+    ppo.init(0)
+    before = [p.detach().clone() for p in ppo.params]
+    torch.cuda.synchronize()
+    rewards, t0 = [], time.perf_counter()
+    for _ in range(PRIVILEGED_ITERATIONS):
+        metrics = ppo.train_step()
+        rewards.append(float(metrics["reward_per_step"]))
+    dt = time.perf_counter() - t0
+    if not (np.isfinite(rewards).all() and np.isfinite(float(metrics["loss"]))):
+        raise AssertionError(f"privileged train: rewards {rewards}, loss {float(metrics['loss'])}")
+    if not all(bool((a != b).any()) for a, b in zip(ppo.params, before)):
+        raise AssertionError("privileged train: a parameter tensor did not change")
+    sec = dt / PRIVILEGED_ITERATIONS
+    print(f"privileged train: {PRIVILEGED_ID}, {NUM_ENVS} envs, rollouts {cfg.rollouts}, {cfg.learning_epochs} epochs x "
+          f"{cfg.mini_batches} minibatches: {sec:.3f} s/iteration = {cfg.rollouts * NUM_ENVS / sec:.1f} env-steps/s; "
+          f"reward/step by iteration {[round(r, 4) for r in rewards]}")
+    return dict(sec_per_iter=sec, rewards=rewards)
+
+
+def env_phase(device) -> None:
+    """The other five ball-rolling ids at 256 envs: ``reset_all`` and 5 steps
+    with no host sync, observation shapes, and the IK resets against the same
+    solve on the CPU."""
+    from tacex_tpu_torch import envs
+
+    for env_id, vision in OTHER_IDS.items():
+        env = envs.make(env_id, num_envs=OTHER_ENVS, device=device)
+        action = torch.zeros((OTHER_ENVS, env.cfg.action_space), device=device)
+        action[:, 2] = -0.1
+        state, obs = env.reset_all(env.init_state())
+        env.step(state, action)  # the first call of each op may set up its library
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, obs = env.reset_all(env.init_state())
+            reset_state = state
+            for _ in range(5):
+                state, obs, reward, term, trunc, info = env.step(state, action)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        shapes = {k: tuple(v.shape) for k, v in obs.items()}
+        expect = {"proprio_obs": (OTHER_ENVS, 14)}
+        if vision is not None:
+            expect["vision_obs"] = (OTHER_ENVS,) + vision
+        if shapes != expect:
+            raise AssertionError(f"{env_id}: obs shapes {shapes}, expected {expect}")
+        for name, t in _tensors({"state": state, "obs": obs, "reward": reward}):
+            if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"{env_id}: {name} is not finite")
+        line = f"env: {env_id}, {OTHER_ENVS} envs: reset_all + 5 steps with no host sync; obs {shapes}"
+        if env.cfg.reset_mode != "default_joints":
+            cpu = envs.make(env_id, num_envs=OTHER_ENVS, device="cpu")
+            target = reset_state.ball_pos.cpu() + cpu._ik_reset_offset
+            q_cpu = cpu._ik_reset_joints(cpu._q0.expand(OTHER_ENVS, 7), target)
+            d_q = float((reset_state.arm.q.cpu() - q_cpu).abs().max())
+            tool, _ = env._tool_pose(reset_state.arm.q)
+            dist = float(torch.linalg.vector_norm(tool.cpu() - target, dim=-1).max())
+            line += f"; IK reset ({env.cfg.reset_mode}): joints cuda vs cpu {d_q:.2e} rad, tool to target {dist:.2e} m"
+            if not d_q <= 1e-4:
+                raise AssertionError(f"{env_id}: the card's IK reset disagrees with the CPU's by {d_q} rad")
+        print(line)
+
+
+def _shading_frame(calib, shifted) -> dict:
+    from tacex_tpu_torch.sensors.gelsight.taxim import optical
+
+    deformed, mask = optical.compute_gel_deformation(calib, shifted)
+    deformed_px = deformed / calib.sensor_params.pixmm
+    grad_mag, grad_dir = optical.generate_normals(calib, -deformed_px)
+    return dict(deformed_px=deformed_px, mask=mask, grad_mag=grad_mag, grad_dir=grad_dir,
+                raw=optical.shade(calib, grad_mag, grad_dir), bins=optical.lut_bins(calib, grad_mag, grad_dir))
+
+
+def _host_ms(fn, iters: int = 5) -> float:
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def shading_phase(device) -> dict:
+    """The shadow, bilinear and compact shading paths at 320x240 on 16 pressed
+    envs, the card against the CPU from the same height maps."""
+    from _torch_bins import assert_bin_rule, lut_spread
+    from tacex_tpu_torch.ops import lut_shade as K2
+    from tacex_tpu_torch.ops import pyramid as K1
+    from tacex_tpu_torch.sensors.gelsight.sensor import GelSightSensor
+    from tacex_tpu_torch.sensors.gelsight.sensor_cfg import gelsight_mini_cfg
+    from tacex_tpu_torch.sensors.gelsight.taxim import optical
+
+    n = SHADING_ENVS
+    sensor = GelSightSensor(gelsight_mini_cfg(with_markers=False), num_envs=n, device=device)
+    _, out = sensor.update(sensor.init_state(), _press_depth(n, device))
+    shifted = optical.shift_height_map(out["height_map"], out["indentation_depth"])
+    cal_g, cal_c = sensor.calib, sensor.calib.to("cpu")
+    shifted_c = shifted.cpu()
+    nb = cal_c.sensor_params.num_bins
+    spread = lut_spread(cal_c.poly_lut.numpy(), cal_c.features.numpy(), nb)
+    fg, fc = _shading_frame(cal_g, shifted), _shading_frame(cal_c, shifted_c)
+    gm_c, gd_c = fc["grad_mag"].numpy(), fc["grad_dir"].numpy()
+    bins_g, bins_c = [b.cpu().numpy() for b in fg["bins"]], [b.numpy() for b in fc["bins"]]
+    rule = dict(bins_t=bins_g, bins_j=bins_c, edge_bins=EDGE_BINS)
+
+    # shadow: the frames agree under the bin rule (the dense shade), and the
+    # shadow stage on the card, given the CPU's frame, gives the CPU's image
+    held = assert_bin_rule(fg["raw"].cpu().numpy(), fc["raw"].numpy(), gm_c, gd_c, nb, spread, **rule)
+    stage = ("raw", "deformed_px", "mask", "grad_dir")
+    shadow_c = optical.shadowed_image(cal_c, *(fc[k] for k in stage))
+    shadow_g = optical.shadowed_image(cal_g, *(fc[k].to(device) for k in stage))
+    d_stage = float((shadow_g.cpu() - shadow_c).abs().max())
+    composite = optical._shadow_pass_compact(cal_c, *(fc[k] for k in stage))
+    cast = float((composite != fc["raw"]).any(dim=-1).float().mean())
+    img_g = optical.render(cal_g, shifted, with_shadow=True)
+    img_c = optical.render(cal_c, shifted_c, with_shadow=True)
+    d_img = (img_g.cpu() - img_c).abs()
+    if not (bool(torch.isfinite(img_g).all()) and d_stage <= 1e-5 and cast > 0.001 and float(d_img.max()) <= spread + 1e-4):
+        raise AssertionError(f"shadow: stage {d_stage}, shadowed share {cast}, image max {float(d_img.max())}")
+    shadow_ms = _host_ms(lambda: optical.render(cal_g, shifted, with_shadow=True))
+    dense_ms = _host_ms(lambda: optical.render(cal_g, shifted))
+    print(f"shading: 320x240, {n} envs; dense frame cuda vs cpu: {held:.4f} of pixels held to 1e-4 under the bin "
+          f"rule; shadow stage on the CPU's frame, cuda vs cpu: {d_stage:.2e} (atol 1e-5), {cast:.4f} of pixels "
+          f"darkened by a cast shadow; render(with_shadow=True) cuda vs cpu: mean {float(d_img.mean()):.2e}, "
+          f"max {float(d_img.max()):.3e} (LUT spread {spread:.3f}); {shadow_ms:.3f} ms per render, "
+          f"dense render {dense_ms:.3f} ms")
+
+    # bilinear: continuous in the gradients, so the CPU's gradients on both
+    bil_c = optical.shade(cal_c, fc["grad_mag"], fc["grad_dir"], interp="bilinear")
+    bil_g = optical.shade(cal_g, fc["grad_mag"].to(device), fc["grad_dir"].to(device), interp="bilinear")
+    d_bil = float((bil_g.cpu() - bil_c).abs().max())
+    if not d_bil <= 1e-5:
+        raise AssertionError(f"bilinear shade: cuda vs cpu {d_bil}")
+    bil_ms = _host_ms(lambda: optical.shade(cal_g, fg["grad_mag"], fg["grad_dir"], interp="bilinear"))
+    print(f"shading: shade(interp='bilinear') cuda vs cpu {d_bil:.2e} (atol 1e-5); {bil_ms:.3f} ms per call")
+
+    # compact: K2 over the 125-row subtable, then the 16,384 highest-numbered
+    # contact pixels from the full table. A contact of this size overflows
+    # the capacity, so a pixel is covered on both devices only if both count
+    # the same contact pixels above it: the others are set aside.
+    before = K2.lut_shade.launches
+    comp_g = optical.render(cal_g, shifted, compact_capacity=COMPACT_CAPACITY)
+    if K2.lut_shade.launches != before + 1:
+        raise AssertionError("the compact shade path did not launch the shading kernel")
+    comp_c = optical.render(cal_c, shifted_c, compact_capacity=COMPACT_CAPACITY)
+
+    def covered(idx_mag):
+        contact = torch.as_tensor(idx_mag >= 1).reshape(n, -1)
+        above = contact.flip(1).cumsum(1).flip(1)  # contact pixels at or above each pixel
+        return (contact & (above <= COMPACT_CAPACITY)).reshape(idx_mag.shape).numpy()
+
+    cov_g, cov_c = covered(bins_g[0]), covered(bins_c[0])
+    aside = cov_g != cov_c
+    contact_px = int((bins_c[0] >= 1).reshape(n, -1).sum(1).max())
+    rgb_g = np.where(aside[..., None], comp_c.numpy(), comp_g.cpu().numpy())
+    held_c = assert_bin_rule(rgb_g, comp_c.numpy(), gm_c, gd_c, nb, spread, **rule)
+    if aside.mean() > 0.01:
+        raise AssertionError(f"compact: {aside.mean():.4f} of pixels are covered on one device only")
+    full_g = optical.shade(cal_g, fg["grad_mag"], fg["grad_dir"], compact_capacity=240 * 320)
+    d_full = float((full_g - fg["raw"]).abs().max())
+    if not d_full <= 1e-5:
+        raise AssertionError(f"compact shade at full capacity differs from the dense shade by {d_full}")
+    comp_ms = _host_ms(lambda: optical.render(cal_g, shifted, compact_capacity=COMPACT_CAPACITY))
+    print(f"shading: render(compact_capacity={COMPACT_CAPACITY}) cuda vs cpu: {held_c:.4f} of pixels held to 1e-4 "
+          f"under the bin rule, {int(aside.sum())} pixels covered on one device only set aside (up to {contact_px} "
+          f"contact pixels an env, over the capacity); at capacity h*w it equals the dense shade to {d_full:.2e}; "
+          f"{comp_ms:.3f} ms per render")
+
+    joined = torch.zeros((1, 24, 32), device=device, requires_grad=True)
+    try:
+        K1.deformation_pyramid(joined, torch.zeros((1, 24, 32), dtype=torch.bool, device=device), sensor_sigmas((24, 32)))
+    except RuntimeError as err:
+        if "no backward kernel" not in str(err):
+            raise
+    else:
+        raise AssertionError("deformation_pyramid took a CUDA input that requires grad")
+    return dict(shadow_ms=shadow_ms, dense_ms=dense_ms, bilinear_ms=bil_ms, compact_ms=comp_ms)
+
+
 def _state_to(state, device):
     """A copy of a port state on ``device``."""
     if dataclasses.is_dataclass(state):
@@ -485,6 +793,11 @@ def main() -> None:
     kernels = kernel_phase(env, state, device, sensor["frame"], sensor["lut"])
     run = slice_phase(env, state, obs, policy)
     reference_phase(device)
+    del env, state, obs, policy
+    train = train_phase(device)
+    privileged = privileged_train_phase(device)
+    env_phase(device)
+    shading = shading_phase(device)
 
     sources = {
         "deformation_pyramid": ("tacex_tpu_torch/csrc/pyramid.cu", "tacex_tpu/ops/pallas_pyramid.py:61"),
@@ -492,8 +805,9 @@ def main() -> None:
     }
     report = {
         "kernels": [
-            dict(name=name, route="cuda", source=src, replaces=rep, launches=run["launches"][name],
-                 paths={"env_step_4096": run["launches"][name], "sensor_320x240_256": sensor["launches"][name]},
+            dict(name=name, route="cuda", source=src, replaces=rep, launches=train["launches"][name],
+                 paths={"ppo_train_4096": train["launches"][name], "env_step_4096": run["launches"][name],
+                        "sensor_320x240_256": sensor["launches"][name]},
                  **kernels[name])
             for name, (src, rep) in sources.items()
         ],
@@ -506,6 +820,9 @@ def main() -> None:
         "sensor_320x240_update_ms": sensor["update_ms"],
         "sensor_envs": SENSOR_ENVS,
         "sensor_worst_edge_bins": sensor["worst_edge_bins"],
+        "train": {k: v for k, v in train.items() if k != "launches"},
+        "privileged_train": privileged,
+        "shading_320x240_16_ms": shading,
     }
     print(json.dumps(report))
     card = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

@@ -1,0 +1,115 @@
+"""Train PPO on a task of the PyTorch/CUDA port (``tacex_tpu_torch``).
+
+The port's counterpart of ``scripts/train.py``: the env and the trainer run
+on one CUDA device (``--device cpu`` runs them on the CPU). It prints one
+JSON line per logged iteration, writes ``config.json`` and ``metrics.jsonl``
+into ``--checkpoint_dir`` and saves the network's ``state_dict`` there with
+``torch.save`` (the last three checkpoints are kept).
+
+Usage:
+  python scripts/train_torch.py --task TacEx-Ball-Rolling-Taxim-Fots-v0 \\
+      --num_envs 4096 --iterations 200 --checkpoint_dir runs/br
+"""
+
+from __future__ import annotations
+
+import argparse
+import ast
+import json
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # repo root, so the script runs from anywhere
+
+KEEP_CHECKPOINTS = 3
+
+
+def _parse_kv(pairs: list[str]) -> dict:
+    out = {}
+    for kv in pairs:
+        k, v = kv.split("=", 1)
+        try:
+            v = ast.literal_eval(v)
+        except (ValueError, SyntaxError):
+            pass  # keep as string
+        out[k] = v
+    return out
+
+
+def main(argv: list[str] | None = None) -> None:
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--task", default="TacEx-Ball-Rolling-Taxim-Fots-v0")
+    p.add_argument("--num_envs", type=int, default=1024)
+    p.add_argument("--iterations", type=int, default=100)
+    p.add_argument("--rollouts", type=int, default=None, help="override the per-task tuned rollout length (rl/agents.py)")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--device", default="cuda", help="cuda (default; raises without a card) or cpu")
+    p.add_argument("--checkpoint_dir", default=None)
+    p.add_argument("--checkpoint_interval", type=int, default=50)
+    p.add_argument("--log_interval", type=int, default=1)
+    p.add_argument("--env_cfg", action="append", default=[], metavar="KEY=VALUE",
+                   help="env config override, e.g. --env_cfg episode_length_s=6.0 (repeatable; Python literals)")
+    p.add_argument("--agent_cfg", action="append", default=[], metavar="KEY=VALUE",
+                   help="agent config override on top of the per-task tuned values, e.g. --agent_cfg lr_max=1e-3")
+    args = p.parse_args(argv)
+
+    import torch
+
+    from tacex_tpu_torch import envs
+    from tacex_tpu_torch.rl import PPO
+    from tacex_tpu_torch.rl.agents import agent_cfg_for
+
+    env_overrides = _parse_kv(args.env_cfg)
+    env = envs.make(args.task, num_envs=args.num_envs, device=args.device, **env_overrides)
+    cfg = agent_cfg_for(args.task, "ppo", rollouts=args.rollouts, **_parse_kv(args.agent_cfg))
+    ppo = PPO(env, cfg)
+    print(f"agent cfg (ppo): {cfg}")
+    ppo.init(args.seed)
+
+    run_dir = Path(args.checkpoint_dir).absolute() if args.checkpoint_dir else None
+    metrics_fp = None
+    if run_dir is not None:
+        run_dir.mkdir(parents=True, exist_ok=True)
+        # reproducibility record: the exact launch config of this run
+        with open(run_dir / "config.json", "w") as f:
+            json.dump({"argv": vars(args), "env_overrides": env_overrides, "agent_cfg": str(cfg)}, f, indent=1, default=str)
+        metrics_fp = open(run_dir / "metrics.jsonl", "a")
+
+    saved: list[Path] = []
+    t_start = time.time()
+    try:
+        for it in range(args.iterations):
+            t0 = time.time()
+            metrics = ppo.train_step()
+            # the iteration's one read-back, outside train_step; it waits for the device
+            metrics = {k: float(v) for k, v in metrics.items()}
+            dt = time.time() - t0
+            if it % args.log_interval == 0:
+                line = {
+                    "iter": it,
+                    "env_steps": ppo.steps,
+                    "steps_per_sec": round(args.num_envs * cfg.rollouts / dt, 1),
+                    **{k: round(v, 5) for k, v in metrics.items()},
+                }
+                print(json.dumps(line), flush=True)
+                if metrics_fp is not None:
+                    metrics_fp.write(json.dumps(line) + "\n")
+                    metrics_fp.flush()
+            if run_dir is not None and (it + 1) % args.checkpoint_interval == 0:
+                path = run_dir / f"ckpt_{it}.pt"
+                torch.save(ppo.net.state_dict(), path)
+                saved.append(path)
+                for old in saved[:-KEEP_CHECKPOINTS]:
+                    old.unlink(missing_ok=True)
+                del saved[:-KEEP_CHECKPOINTS]
+    finally:
+        if metrics_fp is not None:
+            metrics_fp.close()
+    if metrics_fp is not None:
+        print(f"metrics jsonl -> {run_dir / 'metrics.jsonl'}")
+    print(f"done: {ppo.steps} env steps in {time.time() - t_start:.1f}s")
+
+
+if __name__ == "__main__":
+    main()

@@ -4,8 +4,9 @@
 package as a nested dict of numpy arrays (field name -> array, with nested
 dicts for ``arm``, ``sensor`` and ``dr``) and returns the port's state on
 ``device`` (the card unless the caller asks for the CPU), so that both
-envs can start from one state. The JAX state's random key has no
-counterpart and is ignored.
+envs can start from one state; ``actions`` and ``prev_actions`` keep their
+width (6 columns, or the privileged tasks' 5). The JAX state's random key
+has no counterpart and is ignored.
 """
 
 from __future__ import annotations

@@ -1,14 +1,15 @@
 """Ball-rolling tactile task: roll a ball to a goal with a GelSight fingertip.
 
-Port of ``tacex_tpu/envs/ball_rolling/env.py`` for the flagship
-``TacEx-Ball-Rolling-Taxim-Fots-v0`` (tactile RGB x marker-dot vision obs,
-default-joint resets; the other obs modes and reset variants are not ported
-yet): a Franka with a GelSight Mini on the flange presses a 5 mm ball on
-a plate and rolls it to a randomized goal. One ``step`` runs, for the whole
-env batch on one device: relative-pose DLS IK, servo + sphere-box and
-sphere-plane contact substeps, the analytic depth render, the Taxim + FOTS
-tactile frame, dones, rewards, the curriculum, masked resets and the
-observations.
+Port of ``tacex_tpu/envs/ball_rolling/env.py``, the six rigid ball-rolling
+tasks: a Franka with a GelSight Mini on the flange presses a 5 mm ball on a
+plate and rolls it to a randomized goal. ``obs_mode`` selects the
+observation (tactile RGB x marker dots, tactile RGB, camera depth, or a
+privileged 14-dim state with a 5-dim action) and ``reset_mode`` where the
+arm restarts (default joints, or a 10-step DLS IK solve to a pose above or
+on the new ball). One ``step`` runs, for the whole env batch on one device:
+relative-pose DLS IK, servo + sphere-box and sphere-plane contact substeps,
+the analytic depth render, the tactile frame, dones, rewards, the
+curriculum, masked resets and the observations.
 
 ``step`` never reads a value back to the host: no ``.item()``, no branch on
 a tensor, no boolean-mask indexing; choices are ``torch.where``. Random draws
@@ -21,10 +22,12 @@ import dataclasses
 import math
 
 import torch
+import torch.nn.functional as F
 
 from ...core import maths
 from ...core.config import configclass
 from ...core.device import DEFAULT_DEVICE
+from ...ops.resize import resize_linear
 from ...physics.rigid import contact, franka
 from ...render.depth_camera import SdfScene, render_depth_batch
 from ...sensors.gelsight.fots import marker_motion as fots
@@ -36,6 +39,9 @@ GELPAD_HALF = (0.020750 / 2, 0.025250 / 2, 0.004500 / 2)
 # camera window matched to the Taxim calibration pixel pitch (0.0295 mm/px at
 # 640x480 -> 18.88 x 14.16 mm)
 CAM_EXTENT = (0.0295 * 640 / 1000.0, 0.0295 * 480 / 1000.0)
+OBS_MODES = ("taxim_fots", "rgb", "depth", "privileged")
+RESET_MODES = ("default_joints", "ik_above", "ik_contact")
+IK_RESET_STEPS = 10
 
 
 @configclass
@@ -69,11 +75,17 @@ class BallRollingEnvCfg(DirectRLEnvCfg):
     goal_randomization_range_x: tuple = (0.0, 0.5)
     goal_randomization_range_y: tuple = (0.0, 0.7)
 
+    # where the arm restarts: at the default joints, or solved by IK to a
+    # pose reset_ik_height above the new ball (ik_above) or on it (ik_contact)
+    reset_mode: str = "default_joints"  # default_joints | ik_above | ik_contact
+    reset_ik_height: float = 0.02
+
     # sensor
     camera_resolution: tuple = (32, 24)
     vision_obs_shape: tuple = (24, 32, 3)  # (h, w, c)
     with_markers: bool = True
     sensor_clipping: tuple = (0.015, 0.029)
+    obs_mode: str = "taxim_fots"  # taxim_fots | rgb | depth | privileged
 
     # rewards (reference reward_cfg, ball_rolling_taxim_fots.py:357-382)
     reward_cfg: dict = dataclasses.field(
@@ -137,8 +149,8 @@ class BallRollingState:
     ball_ang: torch.Tensor  # (N, 3)
     sensor: GelSightSensorState
     goal_pos: torch.Tensor  # (N, 2)
-    actions: torch.Tensor  # (N, 6)
-    prev_actions: torch.Tensor  # (N, 6)
+    actions: torch.Tensor  # (N, action_space)
+    prev_actions: torch.Tensor  # (N, action_space)
     episode_length: torch.Tensor  # (N,) int32
     total_episode_rew: torch.Tensor  # (N,)
     curriculum: torch.Tensor  # (3,) int32
@@ -152,9 +164,17 @@ class BallRollingEnv(DirectRLEnv):
         super().__init__(cfg or BallRollingEnvCfg(), device=device)
         c = self.cfg
         dev = self.device
+        if c.obs_mode not in OBS_MODES:
+            raise ValueError(f"obs_mode {c.obs_mode!r} is not one of {OBS_MODES} (camera_rgb belongs to the UIPC env)")
+        if c.reset_mode not in RESET_MODES:
+            raise ValueError(f"reset_mode {c.reset_mode!r} is not one of {RESET_MODES}")
         res = tuple(c.camera_resolution)
         sensor_cfg = gelsight_mini_cfg(with_markers=c.with_markers, camera_resolution=res, tactile_img_res=res)
         sensor_cfg.sensor_camera_cfg.clipping_range = tuple(c.sensor_clipping)
+        if c.obs_mode in ("depth", "privileged"):
+            # no optical render; the indentation depth (for the rewards) still
+            # comes from the optical config's geometry
+            sensor_cfg.data_types = ["height_map", "camera_depth"]
         self.sensor = GelSightSensor(sensor_cfg, num_envs=c.num_envs, device=dev)
         self.limits = franka.ArmLimits.on(dev)
 
@@ -163,6 +183,10 @@ class BallRollingEnv(DirectRLEnv):
         self._q0 = torch.tensor(c.default_joint_pos, **f32)
         self._ball0 = torch.tensor(c.ball_default_pos, **f32)
         self._z_axis = torch.tensor([0.0, 0.0, 1.0], **f32)
+        hover = c.reset_ik_height if c.reset_mode == "ik_above" else 0.0002
+        self._ik_reset_offset = torch.tensor([0.0, 0.0, c.ball_radius + hover], **f32)
+        # tool pointing straight down: pi about x
+        self._down_quat = torch.tensor([math.cos(math.pi / 2), math.sin(math.pi / 2), 0.0, 0.0], **f32)
         self._gelpad_half = torch.tensor(GELPAD_HALF, **f32)
         self._boxes = torch.zeros((n, 1, 10), **f32)
         self._capsules = torch.zeros((n, 1, 8), **f32)
@@ -271,6 +295,8 @@ class BallRollingEnv(DirectRLEnv):
         new_goal = torch.stack([self._ball0[0] + gx, self._ball0[1] + gy], -1)
 
         q0 = self._q0.expand(n, 7)
+        if c.reset_mode != "default_joints":
+            q0 = self._ik_reset_joints(q0, new_ball + self._ik_reset_offset)
         arm = franka.ArmState(
             q=torch.where(m1, q0, state.arm.q),
             qd=torch.where(m1, 0.0, state.arm.qd),
@@ -292,6 +318,20 @@ class BallRollingEnv(DirectRLEnv):
             dr=dr,
         )
 
+    def _ik_reset_joints(self, q: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        """``IK_RESET_STEPS`` DLS steps from ``q`` (N, 7) toward the tool at
+        ``target`` (N, 3) pointing straight down, clipped to the joint limits
+        after each step. Solved for every env; the caller applies it under
+        its mask."""
+        down = self._down_quat.expand(q.shape[0], 4)
+        for _ in range(IK_RESET_STEPS):
+            pos, quat, origins, axes = franka.forward_kinematics(q, ee_offset_pos=self.cfg.ee_offset)
+            jac = franka.geometric_jacobian(pos, origins, axes)
+            rot_err = maths.axis_angle_from_quat(maths.quat_mul(down, maths.quat_conjugate(quat)))
+            q = franka.dls_ik_step(q, target - pos, rot_err, jac)
+            q = torch.clamp(q, self.limits.q_lower, self.limits.q_upper)
+        return q
+
     def reset_all(self, state: BallRollingState):
         state = self._reset_where(state, torch.ones((self.cfg.num_envs,), dtype=torch.bool, device=self.device))
         return state, self._observations(state, sensor_out=None, noise=False)
@@ -306,6 +346,8 @@ class BallRollingEnv(DirectRLEnv):
         actions = torch.clamp(torch.nan_to_num(action), -1.0, 1.0)
         actions = actions + self._uniform(actions.shape, -c.action_noise, c.action_noise)
         processed = actions * c.action_scale
+        if processed.shape[-1] < 6:  # the privileged tasks' 5-dim action omits the yaw rate
+            processed = F.pad(processed, (0, 6 - processed.shape[-1]))
 
         arm = franka.apply_delta_pose_ik(
             state.arm, processed[:, :3], processed[:, 3:6], self.limits, ee_offset_pos=c.ee_offset
@@ -348,6 +390,16 @@ class BallRollingEnv(DirectRLEnv):
                 ball_quat = maths.quat_normalize(ball_quat + 0.5 * sub_dt * maths.quat_mul(wq, ball_quat))
 
         return arm, ball_pos, ball_quat, ball_lin, ball_ang, actions, prev_actions
+
+    def step_physics_only(self, state: BallRollingState, action: torch.Tensor) -> BallRollingState:
+        """Physics without the tactile frame, dones, rewards, resets and
+        observations: a harness times this beside ``step`` and attributes the
+        difference to the tactile stage."""
+        arm, ball_pos, ball_quat, ball_lin, ball_ang, actions, prev_actions = self._physics_step(state, action)
+        return dataclasses.replace(
+            state, arm=arm, ball_pos=ball_pos, ball_quat=ball_quat, ball_lin=ball_lin, ball_ang=ball_ang,
+            actions=actions, prev_actions=prev_actions, episode_length=state.episode_length + 1,
+        )
 
     def step(self, state: BallRollingState, action: torch.Tensor):
         c = self.cfg
@@ -491,21 +543,35 @@ class BallRollingEnv(DirectRLEnv):
         n = c.num_envs
         tool_pos, tool_quat = self._tool_pose(state.arm.q)
         roll, pitch, yaw = maths.euler_xyz_from_quat(tool_quat)
-        proprio = torch.cat(
-            [tool_pos, roll[:, None], pitch[:, None], yaw[:, None], state.goal_pos, state.actions], dim=-1
-        )
+        if c.obs_mode == "privileged":
+            # ee pos(3) + roll/pitch(2) + goal(2) + ball xy(2) + actions(5)
+            parts = [tool_pos, roll[:, None], pitch[:, None], state.goal_pos, state.ball_pos[:, :2],
+                     state.actions[:, :5]]
+        else:
+            parts = [tool_pos, roll[:, None], pitch[:, None], yaw[:, None], state.goal_pos, state.actions]
+        proprio = torch.cat(parts, dim=-1)
         if noise:
+            # one draw. The JAX env also draws for the 14-dim default vector
+            # before it builds the privileged one, from the same key, and
+            # throws that vector away: its first draw is dead.
             proprio = proprio + c.obs_noise_std * torch.randn(
                 proprio.shape, generator=self.generator, device=self.device
             )
+        if c.obs_mode == "privileged":
+            return {"proprio_obs": proprio}
 
         vh, vw, vc = c.vision_obs_shape
         if sensor_out is None:
             return {"proprio_obs": proprio, "vision_obs": torch.zeros((n, vh, vw, vc), device=self.device)}
+        if c.obs_mode == "depth":
+            depth = sensor_out["camera_depth"]  # (N, h, w, 1)
+            if tuple(depth.shape[1:3]) != (vh, vw):
+                depth = resize_linear(depth, (n, vh, vw, 1))
+            return {"proprio_obs": proprio, "vision_obs": depth}
         rgb = sensor_out["tactile_rgb"]
         if tuple(rgb.shape[1:3]) != (vh, vw):
-            raise NotImplementedError("resizing the tactile image to the vision obs is not ported yet")
-        if c.with_markers and "marker_motion" in sensor_out:
+            rgb = resize_linear(rgb, (n, vh, vw, 3))
+        if c.obs_mode == "taxim_fots" and c.with_markers and "marker_motion" in sensor_out:
             mcfg = self.sensor.marker_cfg
             markers = sensor_out["marker_motion"][:, 1]  # (N, M, 2)
             sx, sy = vw / mcfg.tactile_img_width, vh / mcfg.tactile_img_height

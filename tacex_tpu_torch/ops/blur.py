@@ -5,7 +5,8 @@ reflect-padded band matrices are computed in numpy exactly as the JAX
 package computes them, so both packages blur with the same operators.
 ``gaussian_blur`` is the plain version (two band-matrix products);
 ``gaussian_taps`` hands the same taps and reflect rule to the hand-written
-deformation-pyramid kernel (``ops/pyramid.py``).
+deformation-pyramid kernel (``ops/pyramid.py``). ``box_dilate`` grows a
+binary mask by a box (the shadow pass's attachment ring).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def kernel_size_for_sigma(sigma: float, eps: float = 1e-5) -> int:
@@ -113,3 +115,17 @@ def gaussian_blur(
         x = x.reshape((-1, ch) + spatial).movedim(1, -1)
         return x.reshape(lead + spatial + (ch,))
     return x.reshape(lead + spatial)
+
+
+def box_dilate(mask: torch.Tensor, kernel_hw: tuple[int, int]) -> torch.Tensor:
+    """Binary dilation of a (..., H, W) bool mask by a (kh, kw) box, as a
+    max-pool anchored like scipy's 'same' convolution with a ones kernel:
+    output ``i`` covers ``[i - k // 2, i + (k - 1) // 2]``, which is
+    asymmetric for even kernels. ``max_pool2d`` only pads symmetrically, so
+    the pad is explicit."""
+    kh, kw = max(int(kernel_hw[0]), 1), max(int(kernel_hw[1]), 1)
+    if kh == 1 and kw == 1:
+        return mask
+    x = mask.to(torch.float32).reshape((-1, 1) + tuple(mask.shape[-2:]))
+    x = F.pad(x, (kw // 2, (kw - 1) // 2, kh // 2, (kh - 1) // 2), value=float("-inf"))
+    return (F.max_pool2d(x, (kh, kw), stride=1) > 0).reshape(mask.shape)

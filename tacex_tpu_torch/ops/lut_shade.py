@@ -26,12 +26,18 @@ def lut_shade_plain(idx: torch.Tensor, feats: torch.Tensor, table: torch.Tensor)
 def lut_shade(idx: torch.Tensor, feats: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """(n, P) int32 row indices, (6, P) f32 features, (R, 18) f32 table ->
     (n, P, 3) f32. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel or raises. A row index outside ``[0, R)`` gives NaN
+    launches the kernel or raises (a ``RuntimeError`` for ``feats`` or
+    ``table`` that require grad: the kernel has no backward). A row index outside ``[0, R)`` gives NaN
     on the card and raises on the CPU."""
     if idx.device.type == "cpu":
         return lut_shade_plain(idx, feats, table)
     if idx.device.type != "cuda":
         raise ValueError(f"lut_shade: unsupported device {idx.device}")
+    if torch.is_grad_enabled() and (feats.requires_grad or table.requires_grad):
+        raise RuntimeError(
+            "lut_shade: the CUDA kernel has no backward kernel, so no gradient can reach `feats` or `table`; "
+            "detach them, or differentiate on the CPU"
+        )
     if idx.dtype != torch.int32 or idx.ndim != 2:
         raise ValueError(f"idx must be (n, P) int32, got {tuple(idx.shape)} {idx.dtype}")
     n, p = idx.shape

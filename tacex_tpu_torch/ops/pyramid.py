@@ -69,15 +69,22 @@ def deformation_pyramid(joined: torch.Tensor, mask: torch.Tensor, sigmas) -> tor
     """(N, H, W) f32 ``joined`` and bool ``mask`` -> (N, H, W) f32.
 
     ``sigmas``: ``((sigma_x, sigma_y), ...)``, the pyramid levels then the
-    final blur. A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel or raises: a ``ValueError`` names an image the kernel cannot
-    hold (240x320 is taken; 480x640 with the sensor's sigmas is not).
+    final blur. A CPU tensor takes the plain version (differentiable); a CUDA
+    tensor launches the kernel or raises: a ``ValueError`` names an image
+    the kernel cannot hold (240x320 is taken; 480x640 with the sensor's
+    sigmas is not), a ``RuntimeError`` a ``joined`` that requires grad (the
+    kernel writes a result without a ``grad_fn``).
     """
     sigmas = tuple((float(sx), float(sy)) for sx, sy in sigmas)
     if joined.device.type == "cpu":
         return deformation_pyramid_plain(joined, mask, sigmas)
     if joined.device.type != "cuda":
         raise ValueError(f"deformation_pyramid: unsupported device {joined.device}")
+    if torch.is_grad_enabled() and joined.requires_grad:
+        raise RuntimeError(
+            "deformation_pyramid: the CUDA kernel has no backward kernel, so no gradient can reach `joined`; "
+            "detach it, or differentiate on the CPU"
+        )
     if joined.dtype != torch.float32 or joined.ndim != 3:
         raise ValueError(f"joined must be (N, H, W) float32, got {tuple(joined.shape)} {joined.dtype}")
     if mask.dtype != torch.bool or mask.shape != joined.shape or mask.device != joined.device:

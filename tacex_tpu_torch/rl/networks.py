@@ -1,14 +1,19 @@
-"""Actor-critic networks for dict observations, forward pass (PyTorch).
+"""Actor-critic networks for dict observations (PyTorch).
 
 Port of ``tacex_tpu/rl/networks.py``: vision -> conv(16, k4, s2) ->
 conv(4, k3, s1) -> flatten -> concat(proprio) -> MLP [256, 128, 64] (elu) ->
-gaussian policy head / value head, with separate policy and value towers.
-Observations keep the JAX layout (NHWC images); the conv output is flattened
-in NHWC order, so weights converted by ``actor_critic_from_flax`` give the
-JAX network's outputs.
+gaussian policy head / value head, with separate policy and value towers
+(the JAX network's ``shared_trunk`` option is not ported: no registered
+config sets it). Without a vision observation the towers read the proprio
+vector alone. Observations keep the JAX layout (NHWC images); the conv
+output is flattened in NHWC order, so weights converted by
+``actor_critic_from_flax`` give the JAX network's outputs, and
+``actor_critic_to_flax`` carries trained weights back.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -39,12 +44,13 @@ class VisionEncoder(nn.Module):
 
 
 class ActorCritic(nn.Module):
-    """Gaussian actor + value critic over ``{"proprio_obs", "vision_obs"}``."""
+    """Gaussian actor + value critic over ``{"proprio_obs", "vision_obs"}``,
+    or over ``{"proprio_obs"}`` alone when ``vision_shape`` is None."""
 
     def __init__(
         self,
         proprio_dim: int,
-        vision_shape: tuple[int, int, int],  # (h, w, c)
+        vision_shape: tuple[int, int, int] | None,  # (h, w, c)
         action_dim: int,
         hidden: tuple = (256, 128, 64),
         initial_log_std: float = 0.0,
@@ -55,10 +61,13 @@ class ActorCritic(nn.Module):
         super().__init__()
         device = resolve(device)
         self.min_log_std, self.max_log_std = min_log_std, max_log_std
-        h, w, c = vision_shape
-        self.pi_encoder = VisionEncoder(c, device=device)
-        self.v_encoder = VisionEncoder(c, device=device)
-        in_dim = proprio_dim + VisionEncoder.out_features(h, w)
+        in_dim = proprio_dim
+        self.pi_encoder = self.v_encoder = None
+        if vision_shape is not None:
+            h, w, c = vision_shape
+            self.pi_encoder = VisionEncoder(c, device=device)
+            self.v_encoder = VisionEncoder(c, device=device)
+            in_dim += VisionEncoder.out_features(h, w)
 
         def tower():
             layers, d = [], in_dim
@@ -91,6 +100,8 @@ class ActorCritic(nn.Module):
 
     @staticmethod
     def _features(encoder, obs):
+        if encoder is None:
+            return obs["proprio_obs"]
         return torch.cat([encoder(obs["vision_obs"]), obs["proprio_obs"]], dim=-1)
 
     def forward(self, obs: dict[str, torch.Tensor]):
@@ -102,30 +113,64 @@ class ActorCritic(nn.Module):
         return mean, log_std, value
 
 
-def actor_critic_from_flax(params) -> dict[str, torch.Tensor]:
-    """``ActorCritic`` state_dict from the JAX network's params (numpy leaves).
+def gaussian_log_prob(mean: torch.Tensor, log_std: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
+    var = torch.exp(2 * log_std)
+    lp = -0.5 * ((action - mean) ** 2 / var + 2 * log_std + math.log(2 * math.pi))
+    return lp.sum(dim=-1)
 
-    Flax names the towers' layers in call order: ``VisionEncoder_0`` and
-    ``Dense_0..2`` for the policy, ``VisionEncoder_1`` and ``Dense_3..5`` for
-    the value, then ``Dense_6`` (mean) and ``Dense_7`` (value). Conv kernels
-    go from HWIO to OIHW; Dense kernels (in, out) are transposed.
-    """
+
+def gaussian_entropy(log_std: torch.Tensor) -> torch.Tensor:
+    return (log_std + 0.5 * math.log(2 * math.pi * math.e)).sum(dim=-1)
+
+
+def _flax_layout(n_hidden: int, vision: bool) -> tuple[list, list]:
+    """How the state_dict's names map onto the JAX network's: (dense, conv)
+    lists of (state_dict prefix, flax path). Flax names the layers in call
+    order: ``VisionEncoder_0`` and ``Dense_0..`` for the policy tower,
+    ``VisionEncoder_1`` and the next Dense layers for the value tower, then
+    the mean head and the value head."""
+    dense = [(f"pi_tower.{2 * i}", f"Dense_{i}") for i in range(n_hidden)]
+    dense += [(f"v_tower.{2 * i}", f"Dense_{n_hidden + i}") for i in range(n_hidden)]
+    dense += [("mean_head", f"Dense_{2 * n_hidden}"), ("value_head", f"Dense_{2 * n_hidden + 1}")]
+    conv = []
+    if vision:
+        conv = [
+            (f"{prefix}.conv{i}", (name, f"Conv_{i}"))
+            for prefix, name in (("pi_encoder", "VisionEncoder_0"), ("v_encoder", "VisionEncoder_1"))
+            for i in range(2)
+        ]
+    return dense, conv
+
+
+def actor_critic_from_flax(params) -> dict[str, torch.Tensor]:
+    """``ActorCritic`` state_dict from the JAX network's params (numpy
+    leaves), with or without ``VisionEncoder_*``. Conv kernels go from HWIO
+    to OIHW; Dense kernels (in, out) are transposed."""
     p = params.get("params", params)
     t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
-    dense = sorted((k for k in p if k.startswith("Dense_")), key=lambda k: int(k.split("_")[1]))
-    n_hidden = (len(dense) - 2) // 2
+    n_hidden = (sum(1 for k in p if k.startswith("Dense_")) - 2) // 2
+    dense, conv = _flax_layout(n_hidden, "VisionEncoder_0" in p)
     sd = {}
-    for prefix, names in (("pi_tower", dense[:n_hidden]), ("v_tower", dense[n_hidden : 2 * n_hidden])):
-        for i, name in enumerate(names):
-            sd[f"{prefix}.{2 * i}.weight"] = t(p[name]["kernel"]).T.contiguous()
-            sd[f"{prefix}.{2 * i}.bias"] = t(p[name]["bias"])
-    for prefix, name in (("mean_head", dense[-2]), ("value_head", dense[-1])):
+    for prefix, name in dense:
         sd[f"{prefix}.weight"] = t(p[name]["kernel"]).T.contiguous()
         sd[f"{prefix}.bias"] = t(p[name]["bias"])
-    for prefix, name in (("pi_encoder", "VisionEncoder_0"), ("v_encoder", "VisionEncoder_1")):
-        for i in range(2):
-            conv = p[name][f"Conv_{i}"]
-            sd[f"{prefix}.conv{i}.weight"] = t(conv["kernel"]).permute(3, 2, 0, 1).contiguous()
-            sd[f"{prefix}.conv{i}.bias"] = t(conv["bias"])
+    for prefix, (enc, name) in conv:
+        sd[f"{prefix}.weight"] = t(p[enc][name]["kernel"]).permute(3, 2, 0, 1).contiguous()
+        sd[f"{prefix}.bias"] = t(p[enc][name]["bias"])
     sd["log_std"] = t(p["log_std"])
     return sd
+
+
+def actor_critic_to_flax(state_dict) -> dict:
+    """The inverse of ``actor_critic_from_flax``: the JAX network's
+    ``{"params": ...}`` tree, numpy leaves, from an ``ActorCritic`` state_dict."""
+    a = lambda x: x.detach().cpu().numpy().copy()
+    n_hidden = sum(1 for k in state_dict if k.startswith("pi_tower.") and k.endswith(".weight"))
+    dense, conv = _flax_layout(n_hidden, "pi_encoder.conv0.weight" in state_dict)
+    p: dict = {"log_std": a(state_dict["log_std"])}
+    for prefix, name in dense:
+        p[name] = {"kernel": a(state_dict[f"{prefix}.weight"].T), "bias": a(state_dict[f"{prefix}.bias"])}
+    for prefix, (enc, name) in conv:
+        kernel = a(state_dict[f"{prefix}.weight"].permute(2, 3, 1, 0))
+        p.setdefault(enc, {})[name] = {"kernel": kernel, "bias": a(state_dict[f"{prefix}.bias"])}
+    return {"params": p}

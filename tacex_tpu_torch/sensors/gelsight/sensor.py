@@ -59,8 +59,6 @@ class GelSightSensor:
         self._markers_enabled = cfg.marker_motion_sim_cfg is not None and "marker_motion" in cfg.data_types
 
         if ocfg is not None:
-            if ocfg.with_shadow:
-                raise NotImplementedError("the shadow pass is not ported yet")
             folder = ocfg.calib_folder_path or None
             self.tactile_res = tuple(ocfg.tactile_img_res)  # (w, h)
             th, tw = self.tactile_res[1], self.tactile_res[0]
@@ -146,7 +144,11 @@ class GelSightSensor:
             deformed_px = deformed / self.calib.sensor_params.pixmm
             grad_mag, grad_dir = taxim_optical.generate_normals(self.calib, -deformed_px)
             raw = taxim_optical.shade(self.calib, grad_mag, grad_dir)
-            out["tactile_rgb"] = torch.clamp(raw + self.calib.background, 0.0, 1.0)
+            if self.cfg.optical_sim_cfg.with_shadow:
+                img = taxim_optical.shadowed_image(self.calib, raw, deformed_px, contact_mask, grad_dir)
+            else:
+                img = raw + self.calib.background
+            out["tactile_rgb"] = torch.clamp(img, 0.0, 1.0)
 
         if self._markers_enabled:
             in_contact = indent > 0.0

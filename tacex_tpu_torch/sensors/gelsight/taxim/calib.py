@@ -4,9 +4,12 @@ Port of ``tacex_tpu/sensors/gelsight/taxim/calib.py``: the polynomial
 gradient LUT is stacked back in RGB order and scaled to [0, 1]; the gel rest
 height map is blurred, scaled by ``pixmm`` and shifted to a maximum of zero;
 the background frame is synthesized (the shipped calibration has no
-``dataPack.npz``: three LEDs over a gray gel) and denoised. The files are
-read from the JAX package's asset folder by path; nothing of that package
-is imported.
+``dataPack.npz``: three LEDs over a gray gel) and denoised; the ragged
+per-(direction, height) shadow attenuation lists are padded with +inf into a
+dense table whose extra height row is all-inf (the out-of-range sentinel),
+and each direction is fanned into its ray angles. The files are read from
+the JAX package's asset folder by path; nothing of that package is
+imported.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ from .params import SensorParams, SimParams, load_params
 DEFAULT_CALIB_GELSIGHT_MINI = (
     Path(__file__).resolve().parents[4] / "tacex_tpu" / "assets" / "gelsight_mini" / "calibs" / "640x480"
 )
+SHADOW_DEPTH_0 = 0.4  # mm; shadow table depth origin
+SHADOW_HEIGHT_IDX_OFFSET = 6
 
 
 def default_calib_folder() -> Path:
@@ -53,6 +58,8 @@ class TaximCalib:
     gel_map: torch.Tensor  # (h, w) float32, mm, max-normalized to 0
     background: torch.Tensor  # (h, w, 3) float32 in [0, 1]
     features: torch.Tensor  # (6, h*w) float32: _features at (h, w), transposed
+    shadow_fan_angles: torch.Tensor  # (num_dirs, num_fan_rays) float32, radians
+    shadow_table: torch.Tensor  # (num_dirs, num_heights+1, max_len, 3) float32
     gel_map_shift: float
     sim_params: SimParams
     sensor_params: SensorParams
@@ -83,6 +90,8 @@ class TaximCalib:
             gel_map=self.gel_map.to(device),
             background=self.background.to(device),
             features=self.features.to(device),
+            shadow_fan_angles=self.shadow_fan_angles.to(device),
+            shadow_table=self.shadow_table.to(device),
         )
 
 
@@ -107,6 +116,30 @@ def _process_initial_frame(f0: torch.Tensor, sim_params: SimParams) -> torch.Ten
     fmp = sim_params.frame_mixing_percentage
     mixed = fmp * f0_blur + (1.0 - fmp) * f0
     return torch.where(diff < sim_params.diff_threshold / 255.0, mixed, f0)
+
+
+def _load_shadow_table(folder: Path, sim_params: SimParams) -> tuple[np.ndarray, np.ndarray]:
+    """(fan angles (dirs, rays), dense table (dirs, heights+1, max_len, 3))
+    from ``shadowTable.npz``, RGB order, scaled to [0, 1]."""
+    # the table is an object array of ragged lists written by this project
+    shadow = np.load(folder / "shadowTable.npz", allow_pickle=True)
+    directions = np.asarray(shadow["shadowDirections"], np.float32)  # (num_dirs,)
+    fan_angle = sim_params.fan_angle
+    num_fan_rays = int(fan_angle * 2 / sim_params.fan_precision)
+    fan = directions[:, None] + np.linspace(-fan_angle, fan_angle, num_fan_rays, dtype=np.float32)
+
+    table = np.flip(shadow["shadowTable"], axis=0)  # (3, dirs, heights) ragged lists, BGR -> RGB
+    n_ch, n_dir, n_h = table.shape
+    max_len = max(max((len(e) for e in table.reshape(-1)), default=1), 1)
+    dense = np.full((n_ch, n_dir, n_h + 1, max_len), np.inf, dtype=np.float32)
+    for c in range(n_ch):
+        for d in range(n_dir):
+            for hh in range(n_h):
+                e = table[c, d, hh]
+                if len(e):
+                    dense[c, d, hh, : len(e)] = np.asarray(e, np.float32)
+    dense /= 255.0
+    return fan.astype(np.float32), np.ascontiguousarray(np.moveaxis(dense, 0, -1))
 
 
 def load_calib(
@@ -138,11 +171,14 @@ def load_calib(
     background = _process_initial_frame(torch.from_numpy(_synthesize_background(h, w)), sim_params)
 
     feats = torch.from_numpy(_features(sensor_params, (h, w)).reshape(h * w, 6).T.copy())
+    fan, shadow_table = _load_shadow_table(folder, sim_params)
     return TaximCalib(
         poly_lut=poly_lut,
         gel_map=gel_map,
         background=background,
         features=feats,
+        shadow_fan_angles=torch.from_numpy(fan),
+        shadow_table=torch.from_numpy(shadow_table),
         gel_map_shift=gel_map_shift,
         sim_params=sim_params,
         sensor_params=sensor_params,

@@ -6,6 +6,7 @@ imports neither jax nor the JAX package.
 """
 
 import inspect
+from pathlib import Path
 
 import pytest
 import torch
@@ -15,6 +16,7 @@ from tacex_tpu_torch.core import device as tdevice
 from tacex_tpu_torch.envs.ball_rolling.convert import state_from_numpy
 from tacex_tpu_torch.envs.ball_rolling.env import BallRollingEnv
 from tacex_tpu_torch.envs.base import DirectRLEnv
+from tacex_tpu_torch.rl import PPO
 from tacex_tpu_torch.rl.networks import ActorCritic, VisionEncoder
 from tacex_tpu_torch.sensors.gelsight.sensor import GelSightSensor
 from tacex_tpu_torch.sensors.gelsight.sensor_cfg import gelsight_mini_cfg
@@ -61,6 +63,18 @@ def test_make_without_a_card_raises(no_card):
 def test_other_entry_points_without_a_card_raise(no_card, build):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build()
+
+
+def test_trainer_and_launcher_run_where_the_env_runs(no_card):
+    """``PPO`` takes no device of its own: it runs on its env's, and the env
+    defaults to the card. The launcher's ``--device`` defaults to ``cuda``."""
+    assert "device" not in inspect.signature(PPO).parameters
+    assert PPO(envs.make(ENV_ID, num_envs=2, device="cpu")).device.type == "cpu"
+    import runpy
+
+    launcher = runpy.run_path(str(Path(__file__).resolve().parents[1] / "scripts" / "train_torch.py"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launcher["main"](["--num_envs", "2", "--iterations", "1"])
 
 
 def test_cpu_on_request():

@@ -19,6 +19,7 @@ from tacex_tpu_torch.ops import _build
 from tacex_tpu_torch.ops import lut_shade as tlut
 from tacex_tpu_torch.ops import pyramid as tpyr
 from tacex_tpu_torch.sensors.gelsight.taxim import calib as tcalib
+from tacex_tpu_torch.sensors.gelsight.taxim import optical as toptical
 
 setup_torch()
 
@@ -121,3 +122,36 @@ def test_wrappers_reject_bad_inputs_on_the_card(cuda):
     idx = torch.zeros((2, 8), dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError, match="int32"):
         tlut.lut_shade(idx, torch.zeros((6, 8), device=cuda), torch.zeros((5, 18), device=cuda))
+
+
+def test_wrappers_refuse_an_input_that_requires_grad(cuda):
+    """Neither kernel has a backward kernel: a CUDA input that requires grad
+    raises instead of giving a result without a ``grad_fn``."""
+    joined = torch.zeros((2, 24, 32), device=cuda, requires_grad=True)
+    mask = torch.zeros((2, 24, 32), dtype=torch.bool, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        tpyr.deformation_pyramid(joined, mask, SLICE_SIGMAS_24x32)
+    with torch.no_grad():
+        assert tpyr.deformation_pyramid(joined, mask, SLICE_SIGMAS_24x32).shape == joined.shape
+    idx = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
+    feats, table = torch.zeros((6, 8), device=cuda), torch.zeros((5, 18), device=cuda)
+    for grad_feats, grad_table in ((True, False), (False, True)):
+        with pytest.raises(RuntimeError, match="no backward kernel"):
+            tlut.lut_shade(idx, feats.clone().requires_grad_(grad_feats), table.clone().requires_grad_(grad_table))
+    assert tlut.lut_shade(idx, feats, table).shape == (2, 8, 3)
+
+
+def test_compact_shade_equals_dense_shade_on_the_card(cuda):
+    """At ``compact_capacity = h * w`` the compact path (K2 over the 125-row
+    subtable, then the compacted full-table rows) is the dense shade."""
+    hw = (48, 64)
+    calib = tcalib.load_calib().at_resolution(hw).to(cuda)
+    rng = np.random.default_rng(7)
+    grad_mag = torch.from_numpy(rng.uniform(0.0, 1.3, (3,) + hw).astype(np.float32)).to(cuda)
+    grad_mag[:, :20] = 0.0  # a halo of magnitude-bin-0 pixels
+    grad_dir = torch.from_numpy(rng.uniform(-np.pi, np.pi, (3,) + hw).astype(np.float32)).to(cuda)
+    before = tlut.lut_shade.launches
+    dense = toptical.shade(calib, grad_mag, grad_dir)
+    compact = toptical.shade(calib, grad_mag, grad_dir, compact_capacity=hw[0] * hw[1])
+    assert tlut.lut_shade.launches == before + 2
+    torch.testing.assert_close(compact, dense, atol=1e-5, rtol=0)

@@ -1,6 +1,7 @@
 """The port stands alone: it loads neither jax nor the JAX package, and its
 kernel build refuses to run without nvcc instead of falling back."""
 
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -35,6 +36,9 @@ SLICE_MODULES = [
     "tacex_tpu_torch.envs.ball_rolling.convert",
     "tacex_tpu_torch.envs",
     "tacex_tpu_torch.rl.networks",
+    "tacex_tpu_torch.rl.ppo",
+    "tacex_tpu_torch.rl.agents",
+    "tacex_tpu_torch.rl",
 ]
 
 
@@ -52,6 +56,27 @@ def test_import_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_train_script_loads_no_jax(tmp_path):
+    """``scripts/train_torch.py`` trains two iterations on the CPU, writes its
+    run folder, and loads neither jax nor the JAX package."""
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = ['train_torch.py', '--task', 'TacEx-Ball-Rolling-Privileged-v0', '--num_envs', '4', "
+        f"'--iterations', '2', '--rollouts', '4', '--device', 'cpu', '--checkpoint_dir', {str(tmp_path)!r}, "
+        "'--checkpoint_interval', '1', '--agent_cfg', 'hidden=(16,)']\n"
+        "runpy.run_path('scripts/train_torch.py', run_name='__main__')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'tacex_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
+    assert [line["iter"] for line in lines] == [0, 1] and lines[-1]["env_steps"] == 2 * 4 * 4
+    assert {"steps_per_sec", "loss", "reward_per_step", "lr", "full_reward"} <= set(lines[0])
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["ckpt_0.pt", "ckpt_1.pt", "config.json", "metrics.jsonl"]
+    assert len((tmp_path / "metrics.jsonl").read_text().splitlines()) == 2
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
