@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one NVIDIA GPU: the flagship env step,
-PPO training on it, the other ball-rolling tasks and every shading path.
+PPO training on it, the other ball-rolling tasks, every shading path, the
+Factory tasks, pole balancing and SAC.
 
     python3 chip_smoke.py
 
@@ -50,12 +51,29 @@ package beside this file; it imports nothing of JAX. In order it:
      ``shade(interp="bilinear")`` and ``render(compact_capacity=16384)`` on
      the card to the same calls on the CPU, times each, checks the compact
      call launched the shading kernel, and that the pyramid wrapper refuses
-     a CUDA input that requires grad.
+     a CUDA input that requires grad;
+ 11. steps each Factory task (PegInsert, GearMesh, NutThread) at its
+     default 128 envs: reset, a warm-up step, 5 steps under sync-debug
+     "error" with K1 and K2 each launched exactly once a step on the 256
+     finger images of 32x32; prints ms/step, CUDA kernels a step
+     (``torch.profiler``) and peak memory; holds K1 (warp design) and K2 on
+     PegInsert's frame to their plain versions and times them, and one
+     PegInsert step on the card to the CPU from the same state
+     (``tests/test_torch_factory.py``'s tolerances);
+ 12. trains PPO one iteration on PegInsert at 128 envs under its tuned
+     config (rollouts 128, 4 epochs x 32 minibatches) on the (32, 32, 6)
+     finger images, with the rollout/update split;
+ 13. resets and steps pole balancing at 1024 envs under sync-debug "error";
+ 14. trains SAC on the privileged task at 512 envs under the config of
+     ``logs/sac_privileged_r05`` (one train step crosses the warm-up, five
+     more run under sync-debug "error") and on the flagship at 4096 envs
+     under its SAC config (two train steps), with losses and temperature.
 
-The second-to-last line is a JSON object with each kernel's launches on
-each path, its error against the plain version, its times, bound and share
-of the bound; the last line is ``{"ok": true, "device": {...}}``. Any
-failure raises and exits non-zero.
+The second-to-last line is a JSON object with a row per kernel and shape:
+its launches on the main path that runs it at that shape, its error against
+the plain version, its times, bound and share of the bound, and the library
+call's time; then each phase's numbers. The last line is ``{"ok": true,
+"device": {...}}``. Any failure raises and exits non-zero.
 """
 
 from __future__ import annotations
@@ -81,6 +99,17 @@ OTHER_IDS = {  # id -> vision obs shape (None: proprio only)
     "TacEx-Ball-Rolling-Privileged-Reset-with-IK-v0": None,
     "TacEx-Ball-Rolling-Privileged-Without-Reaching-v0": None,
 }
+FACTORY_IDS = (
+    "TacEx-Factory-PegInsert-Direct-v0",
+    "TacEx-Factory-GearMesh-Direct-v0",
+    "TacEx-Factory-NutThread-Direct-v0",
+)
+FACTORY_STEPS = 5
+POLE_ID = "TacEx-Pole-Balancing-Base-v0"
+POLE_STEPS = 5
+SAC_PRIVILEGED_ENVS = 512  # logs/sac_privileged_r05/config.json
+SAC_GUARDED_STEPS = 5
+SAC_VISION_STEPS = 2
 TRAIN_ITERATIONS = 3  # one warm-up, two timed
 PRIVILEGED_ITERATIONS = 10
 OTHER_ENVS = 256
@@ -121,19 +150,27 @@ def _timed_ms(fn, iters: int = 20) -> tuple[float, float]:
 
 
 def _frame(env, state):
-    """The tactile frame of ``state`` up to the kernels' inputs: the pyramid's
-    (joined, mask, sigmas) and, after the deformation, the LUT indices."""
+    """The flagship's tactile frame of ``state`` up to the kernels' inputs:
+    the pyramid's (joined, mask, sigmas) and, after the deformation, the LUT
+    indices (full table and direction only)."""
     from tacex_tpu_torch.envs.ball_rolling.env import CAM_EXTENT
     from tacex_tpu_torch.render.depth_camera import SdfScene, render_depth_batch
-    from tacex_tpu_torch.sensors.gelsight.taxim import optical
 
-    c, sensor = env.cfg, env.sensor
+    c = env.cfg
     n = c.num_envs
     tool_pos, tool_quat = env._tool_pose(state.arm.q)
     cam_pos, cam_quat = env._camera_pose(tool_pos, tool_quat)
     radius = torch.full((n, 1), c.ball_radius, device=env.device)
     scene = SdfScene(torch.cat([state.ball_pos, radius], -1)[:, None], env._boxes, env._capsules, env._planes)
     depth = render_depth_batch(cam_pos, cam_quat, scene, tuple(c.camera_resolution), CAM_EXTENT, far=c.sensor_clipping[1])
+    return _depth_frame(env.sensor, depth)
+
+
+def _depth_frame(sensor, depth):
+    """The sensor's frame of a (n, h, w) depth map up to the kernels' inputs."""
+    from tacex_tpu_torch.sensors.gelsight.taxim import optical
+
+    n = depth.shape[0]
     hm = sensor.height_map_from_depth(depth)
     shifted = optical.shift_height_map(hm, sensor.compute_indentation_depth(hm))
     joined, mask, sigmas = optical.deformation_inputs(sensor.calib, shifted)
@@ -179,11 +216,12 @@ def lut_bound(n, p, rows) -> tuple[float, str]:
     return _bound(4 * n * p + 24 * p + 72 * rows + 12 * n * p, 36.0 * n * p)
 
 
-def _timing(fn, plain, nbytes_flops) -> dict:
+def _timing(fn, plain, nbytes_flops, library=None) -> dict:
     ms, host_ms = _timed_ms(fn)
     bound_ms, bound_by = nbytes_flops
     return dict(ms=ms, plain_ms=_timed_ms(plain)[0], bound_ms=bound_ms, bound_by=bound_by,
-                pct_of_bound=100.0 * bound_ms / ms, host_ms=host_ms)
+                pct_of_bound=100.0 * bound_ms / ms, host_ms=host_ms,
+                library_ms=None if library is None else _timed_ms(library)[0])
 
 
 def _compare(name, out, ref) -> float:
@@ -196,75 +234,88 @@ def _compare(name, out, ref) -> float:
     return err
 
 
-def kernel_phase(env, state, device, sensor_frame, sensor_lut) -> dict:
-    """Each kernel against its plain version at the main path's shapes, and
-    at the default sensor's (256, 240, 320) frame."""
+def _pyramid_entry(label, joined, mask, sigmas, design) -> dict:
+    """K1 held to its plain version and timed on (joined, mask, sigmas),
+    after checking which design the kernel takes for the shape (0 = a warp
+    per image, else the cluster's CTAs)."""
+    from tacex_tpu_torch.ops import _build
+    from tacex_tpu_torch.ops import pyramid as K1
+
+    n, h, w = joined.shape
+    taps, ky, kx = K1._packed_taps(tuple((float(sx), float(sy)) for sx, sy in sigmas), h, w)
+    plan = _build.load_library().tacex_deformation_pyramid_plan(
+        h, w, taps.ctypes.data, ky.ctypes.data, kx.ctypes.data, len(ky)
+    )
+    if (plan == 0) != (design == "warp"):
+        raise AssertionError(f"the pyramid takes design {plan} at {h}x{w}, expected the {design} design")
+    err = _compare(f"deformation_pyramid[{label}]", K1.deformation_pyramid(joined, mask, sigmas),
+                   K1.deformation_pyramid_plain(joined, mask, sigmas))
+    return dict(shape=[n, h, w], design=design, max_abs_err=err,
+                **_timing(lambda: K1.deformation_pyramid(joined, mask, sigmas),
+                          lambda: K1.deformation_pyramid_plain(joined, mask, sigmas),
+                          pyramid_bound(joined.shape, sigmas)))
+
+
+def _lut_entry(label, idx, feats, table) -> dict:
+    """K2 held to its plain version and timed, beside the library yardstick:
+    one ``embedding_bag`` over bags of the pixel's six 3-float LUT entries,
+    weighted by its features (inputs built untimed; the port never calls it)."""
     from tacex_tpu_torch.ops import lut_shade as K2
+
+    n, p = idx.shape
+    err = _compare(f"lut_shade[{label}]", K2.lut_shade(idx, feats, table), K2.lut_shade_plain(idx, feats, table))
+    bags = (idx.long()[..., None] * 6 + torch.arange(6, device=idx.device)).reshape(n * p, 6)
+    weights = feats.T.expand(n, p, 6).reshape(n * p, 6).contiguous()
+    entries = table.reshape(-1, 3)
+    library = lambda: torch.nn.functional.embedding_bag(bags, entries, per_sample_weights=weights, mode="sum")
+    _compare(f"embedding_bag[{label}] (library yardstick)", library().reshape(n, p, 3),
+             K2.lut_shade_plain(idx, feats, table))
+    return dict(shape=[n, p, table.shape[0]], max_abs_err=err,
+                **_timing(lambda: K2.lut_shade(idx, feats, table), lambda: K2.lut_shade_plain(idx, feats, table),
+                          lut_bound(n, p, table.shape[0]), library))
+
+
+def _print_entries(entries: dict) -> None:
+    for label, r in entries.items():
+        lib = "" if r.get("library_ms") is None else f", library call {r['library_ms']:.4f} ms"
+        print(f"kernel {label} {r['shape']}: {r['ms']:.4f} ms, plain PyTorch {r['plain_ms']:.4f} ms{lib}, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) = {r['pct_of_bound']:.1f}% of bound; "
+              f"host {r['host_ms']:.4f} ms a call")
+
+
+def kernel_phase(env, state, device, sensor_frame, sensor_lut) -> dict:
+    """Each kernel against its plain version at the flagship's shapes, at a
+    ragged (5, 48, 64) batch and at the default sensor's (256, 240, 320)
+    frame: {label: entry}."""
     from tacex_tpu_torch.ops import pyramid as K1
 
     calib = env.sensor.calib
     joined, mask, sigmas, idx, idir = _frame(env, state)
-
-    # K1 on the frame (4096, 24, 32), on a ragged (5, 48, 64) batch, and on
-    # the sensor's (256, 240, 320) frame
-    err1 = _compare("deformation_pyramid", K1.deformation_pyramid(joined, mask, sigmas),
-                    K1.deformation_pyramid_plain(joined, mask, sigmas))
+    entries = {"pyramid warp 24x32": _pyramid_entry("4096x24x32", joined, mask, sigmas, "warp")}
     sig48 = sensor_sigmas((48, 64))
     g = torch.Generator(device=device).manual_seed(0)
     j48 = torch.rand((5, 48, 64), generator=g, device=device) * 3.0 - 1.0
     m48 = torch.rand((5, 48, 64), generator=g, device=device) < 0.2
-    err48 = _compare("deformation_pyramid[5x48x64]", K1.deformation_pyramid(j48, m48, sig48),
-                     K1.deformation_pyramid_plain(j48, m48, sig48))
-    jb, mb, sb = sensor_frame
-    errb = _compare("deformation_pyramid[256x240x320]", K1.deformation_pyramid(jb, mb, sb),
-                    K1.deformation_pyramid_plain(jb, mb, sb))
-    k1 = dict(shape=list(joined.shape), max_abs_err=max(err1, err48, errb),
-              **_timing(lambda: K1.deformation_pyramid(joined, mask, sigmas),
-                        lambda: K1.deformation_pyramid_plain(joined, mask, sigmas),
-                        pyramid_bound(joined.shape, sigmas)),
-              library_ms=None)
-    k1["other_shapes"] = [dict(shape=list(jb.shape), max_abs_err=errb,
-                               **_timing(lambda: K1.deformation_pyramid(jb, mb, sb),
-                                         lambda: K1.deformation_pyramid_plain(jb, mb, sb),
-                                         pyramid_bound(jb.shape, sb)))]
+    _compare("deformation_pyramid[5x48x64]", K1.deformation_pyramid(j48, m48, sig48),
+             K1.deformation_pyramid_plain(j48, m48, sig48))
+    entries["pyramid cluster 240x320"] = _pyramid_entry("256x240x320", *sensor_frame, "cluster")
 
-    # K2 with the full 15,625-row table at (4096, 768), then the 125-row
-    # magnitude-bin-0 subtable through dir_row_shade (P = 768)
+    # K2 with the full 15,625-row table at (4096, 768); the 125-row
+    # magnitude-bin-0 subtable that the compact shading path gives it,
+    # through dir_row_shade; the sensor frame's (256, 76800) pixels
     nb = calib.sensor_params.num_bins
     table = calib.poly_lut.reshape(nb * nb, 18)
     feats = calib.features
-    err2 = _compare("lut_shade", K2.lut_shade(idx, feats, table), K2.lut_shade_plain(idx, feats, table))
+    entries["lut full table 4096x768"] = _lut_entry("4096x768", idx, feats, table)
+    entries["lut subtable 4096x768"] = _lut_entry("4096x768 subtable", idir, feats, table[:nb].contiguous())
     tabs = torch.zeros((18, 128), device=device)
     tabs[:, :nb] = table[:nb].T
-    err2 = max(err2, _compare("dir_row_shade", K2.dir_row_shade(idir, feats, tabs),
-                              K2.lut_shade_plain(idir, feats, tabs.T)))
-    # the library yardstick: one embedding_bag over bags of the pixel's six
-    # 3-float LUT entries, weighted by its features (inputs built untimed)
-    n, p = idx.shape
-    bags = (idx.long()[..., None] * 6 + torch.arange(6, device=device)).reshape(n * p, 6)
-    weights = feats.T.expand(n, p, 6).reshape(n * p, 6).contiguous()
-    entries = table.reshape(-1, 3)
-    library = lambda: torch.nn.functional.embedding_bag(bags, entries, per_sample_weights=weights, mode="sum")
-    _compare("embedding_bag (library yardstick)", library().reshape(n, p, 3), K2.lut_shade_plain(idx, feats, table))
-    k2 = dict(shape=[n, p, table.shape[0]], max_abs_err=err2,
-              **_timing(lambda: K2.lut_shade(idx, feats, table), lambda: K2.lut_shade_plain(idx, feats, table),
-                        lut_bound(n, p, table.shape[0])),
-              library_ms=_timed_ms(library)[0])
-    # K2 on the sensor frame's (256, 76800) pixels, 75 blocks of pixels wide
-    ib, fb, tb = sensor_lut
-    err2b = _compare("lut_shade[256x76800]", K2.lut_shade(ib, fb, tb), K2.lut_shade_plain(ib, fb, tb))
-    k2["max_abs_err"] = max(err2, err2b)
-    k2["other_shapes"] = [dict(shape=[*ib.shape, tb.shape[0]], max_abs_err=err2b,
-                               **_timing(lambda: K2.lut_shade(ib, fb, tb), lambda: K2.lut_shade_plain(ib, fb, tb),
-                                         lut_bound(*ib.shape, tb.shape[0])))]
-    shown = (("deformation_pyramid", k1), ("deformation_pyramid", k1["other_shapes"][0]), ("lut_shade", k2),
-             ("lut_shade", k2["other_shapes"][0]))
-    for name, r in shown:
-        lib = "" if r.get("library_ms") is None else f", library call {r['library_ms']:.4f} ms"
-        print(f"kernel {name} {r['shape']}: {r['ms']:.4f} ms, plain PyTorch {r['plain_ms']:.4f} ms{lib}, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) = {r['pct_of_bound']:.1f}% of bound; "
-              f"host {r['host_ms']:.4f} ms a call")
-    return {"deformation_pyramid": k1, "lut_shade": k2}
+    from tacex_tpu_torch.ops import lut_shade as K2
+
+    _compare("dir_row_shade", K2.dir_row_shade(idir, feats, tabs), K2.lut_shade_plain(idir, feats, tabs.T))
+    entries["lut full table 256x76800"] = _lut_entry("256x76800", *sensor_lut)
+    _print_entries(entries)
+    return entries
 
 
 def _counters():
@@ -396,6 +447,12 @@ def _tensors(x, prefix=""):
         yield prefix.rstrip("."), x
 
 
+def _check_finite(tag, tree) -> None:
+    for name, t in _tensors(tree):
+        if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{tag}: {name} is not finite")
+
+
 def slice_phase(env, state, obs, policy) -> dict:
     """The main path: policy forward + env step. The counted steps run under
     sync-debug 'error' with the launch counters reset just before; the timed
@@ -415,10 +472,7 @@ def slice_phase(env, state, obs, policy) -> dict:
     torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    outputs = {"state": state, "obs": obs, "reward": reward, "indentation_depth": info["indentation_depth"]}
-    for name, t in _tensors(outputs):
-        if t.is_floating_point() and not bool(torch.isfinite(t).all()):
-            raise AssertionError(f"{name} is not finite")
+    _check_finite("slice", {"state": state, "obs": obs, "reward": reward, "indentation_depth": info["indentation_depth"]})
     n = env.cfg.num_envs
     vh, vw, vc = env.cfg.vision_obs_shape
     if tuple(obs["vision_obs"].shape) != (n, vh, vw, vc) or tuple(obs["proprio_obs"].shape) != (n, 14):
@@ -612,9 +666,7 @@ def env_phase(device) -> None:
             expect["vision_obs"] = (OTHER_ENVS,) + vision
         if shapes != expect:
             raise AssertionError(f"{env_id}: obs shapes {shapes}, expected {expect}")
-        for name, t in _tensors({"state": state, "obs": obs, "reward": reward}):
-            if t.is_floating_point() and not bool(torch.isfinite(t).all()):
-                raise AssertionError(f"{env_id}: {name} is not finite")
+        _check_finite(env_id, {"state": state, "obs": obs, "reward": reward})
         line = f"env: {env_id}, {OTHER_ENVS} envs: reset_all + 5 steps with no host sync; obs {shapes}"
         if env.cfg.reset_mode != "default_joints":
             cpu = envs.make(env_id, num_envs=OTHER_ENVS, device="cpu")
@@ -653,7 +705,6 @@ def shading_phase(device) -> dict:
     """The shadow, bilinear and compact shading paths at 320x240 on 16 pressed
     envs, the card against the CPU from the same height maps."""
     from _torch_bins import assert_bin_rule, lut_spread
-    from tacex_tpu_torch.ops import lut_shade as K2
     from tacex_tpu_torch.ops import pyramid as K1
     from tacex_tpu_torch.sensors.gelsight.sensor import GelSightSensor
     from tacex_tpu_torch.sensors.gelsight.sensor_cfg import gelsight_mini_cfg
@@ -707,10 +758,11 @@ def shading_phase(device) -> dict:
     # contact pixels from the full table. A contact of this size overflows
     # the capacity, so a pixel is covered on both devices only if both count
     # the same contact pixels above it: the others are set aside.
-    before = K2.lut_shade.launches
+    _reset_counters()
     comp_g = optical.render(cal_g, shifted, compact_capacity=COMPACT_CAPACITY)
-    if K2.lut_shade.launches != before + 1:
-        raise AssertionError("the compact shade path did not launch the shading kernel")
+    compact_launches = _read_counters()
+    if compact_launches["lut_shade"] != 1:
+        raise AssertionError("the compact shade path did not launch the shading kernel once")
     comp_c = optical.render(cal_c, shifted_c, compact_capacity=COMPACT_CAPACITY)
 
     def covered(idx_mag):
@@ -743,7 +795,271 @@ def shading_phase(device) -> dict:
             raise
     else:
         raise AssertionError("deformation_pyramid took a CUDA input that requires grad")
-    return dict(shadow_ms=shadow_ms, dense_ms=dense_ms, bilinear_ms=bil_ms, compact_ms=comp_ms)
+    return dict(shadow_ms=shadow_ms, dense_ms=dense_ms, bilinear_ms=bil_ms, compact_ms=comp_ms,
+                compact_launches=compact_launches)
+
+
+def _factory_action(n: int, device) -> torch.Tensor:
+    """A steady push down with a small, seeded sideways wobble."""
+    g = torch.Generator(device=device).manual_seed(3)
+    action = (torch.rand((n, 6), generator=g, device=device) - 0.5) * 0.4
+    action[:, 2] = -0.5
+    return action
+
+
+def _launch_count(fn) -> int:
+    """CUDA kernels that one call of ``fn`` launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def factory_phase(device) -> dict:
+    """The three Factory tasks at their default 128 envs: reset, a warm-up
+    step, then FACTORY_STEPS steps with no host sync, each launching K1 and
+    K2 exactly once on the 2N = 256 finger images; then K1 (warp design,
+    32x32) and K2 on PegInsert's frame against their plain versions, and one
+    PegInsert step on the card against the CPU from the same state."""
+    from tacex_tpu_torch import envs
+
+    out = {"steps": {}}
+    for env_id in FACTORY_IDS:
+        env = envs.make(env_id, device=device)
+        n = env.cfg.num_envs
+        action = _factory_action(n, device)
+        state, obs = env.reset_all(env.init_state())
+        state, obs, *_ = env.step(state, action)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counters()
+        torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            for _ in range(FACTORY_STEPS):
+                state, obs, reward, term, trunc, info = env.step(state, action)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / FACTORY_STEPS
+        launches = _read_counters()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if launches != {"deformation_pyramid": FACTORY_STEPS, "lut_shade": FACTORY_STEPS}:
+            raise AssertionError(f"{env_id}: kernel launches {launches} in {FACTORY_STEPS} steps, expected one each a step")
+        _check_finite(env_id, {"state": state, "obs": obs, "reward": reward, "log": info["log"]})
+        shapes = {k: tuple(v.shape) for k, v in obs.items()}
+        if shapes != {"proprio_obs": (n, 19), "vision_obs": (n, 32, 32, 6)}:
+            raise AssertionError(f"{env_id}: obs shapes {shapes}")
+        kernels = _launch_count(lambda: env.step(state, action))
+        log = {k: float(v) for k, v in info["log"].items()}
+        print(f"factory: {env_id}, {n} envs, {FACTORY_STEPS} steps with no host sync: {step_ms:.3f} ms/step "
+              f"(host clock, synchronised), {kernels} CUDA kernels a step (torch.profiler), K1/K2 launches "
+              f"{launches}, peak memory {peak_gb:.3f} GB; log {log}")
+        out["steps"][env_id] = dict(step_ms=step_ms, kernels_per_step=kernels, launches=launches, peak_gb=peak_gb)
+        if env_id == FACTORY_IDS[0]:
+            out["launches"] = launches
+            out["kernels"] = _factory_kernels(env, state)
+            out["reference"] = _factory_reference(env, state, action)
+        del env, state, obs
+    return out
+
+
+def _factory_kernels(env, state) -> dict:
+    """K1 and K2 on the Factory frame of ``state``: the 2N finger images."""
+    depth = env._finger_depths(state.arm, state.held)
+    joined, mask, sigmas, idx, _ = _depth_frame(env.sensor, depth)
+    calib = env.sensor.calib
+    nb = calib.sensor_params.num_bins
+    entries = {
+        "pyramid warp 32x32": _pyramid_entry(f"{joined.shape[0]}x32x32", joined, mask, sigmas, "warp"),
+        "lut full table 256x1024": _lut_entry(f"{idx.shape[0]}x{idx.shape[1]}", idx, calib.features,
+                                             calib.poly_lut.reshape(nb * nb, 18)),
+    }
+    _print_entries(entries)
+    return entries
+
+
+def _factory_reference(env, state, action) -> dict:
+    """One PegInsert step at 128 envs on the card and on the CPU from the
+    same state, held to ``tests/test_torch_factory.py``'s tolerances. Each
+    side renders its fingers from its own poses, which differ by f32 noise,
+    so a pixel centre on a silhouette edge may fall either way: the depth
+    maps are held by their share of pixels within 1e-6 m, and the sensor is
+    held on the CPU's depth maps, card against CPU, under the bin rule."""
+    from _torch_bins import FINGER_NOISE_FLOOR, assert_bin_rule, bin_coords, lut_spread
+    from tacex_tpu_torch import envs
+
+    cpu = envs.make(FACTORY_IDS[0], device="cpu")
+    st_c = _state_to(state, "cpu")
+    st_g, obs_g, rew_g, *_ = env.step(state, action)
+    st_c, obs_c, rew_c, *_ = cpu.step(st_c, action.cpu())
+    diffs = {}
+    for name, a, b, rates in (
+        ("arm.q", st_g.arm.q, st_c.arm.q, False), ("held.pos", st_g.held.pos, st_c.held.pos, False),
+        ("held.quat", st_g.held.quat, st_c.held.quat, False), ("arm.qd", st_g.arm.qd, st_c.arm.qd, True),
+        ("held.linvel", st_g.held.linvel, st_c.held.linvel, True),
+        ("held.angvel", st_g.held.angvel, st_c.held.angvel, True),
+        ("proprio", obs_g["proprio_obs"], obs_c["proprio_obs"], False), ("reward", rew_g, rew_c, False),
+    ):
+        d = float((a.cpu() - b).abs().max())
+        limit = 1e-4 * max(1.0, float(b.abs().max())) if rates else 1e-5
+        diffs[name] = d
+        if not d <= limit:
+            raise AssertionError(f"factory reference: {name} differs by {d} (limit {limit})")
+    depth_c = cpu._finger_depths(st_c.arm, st_c.held)
+    depth_near = float(((env._finger_depths(st_g.arm, st_g.held).cpu() - depth_c).abs() <= 1e-6).float().mean())
+    if depth_near < 0.99:
+        raise AssertionError(f"factory reference: only {depth_near} of depth pixels agree to 1e-6 m")
+    _, out_g = env.sensor.update(env.sensor.init_state(), depth_c.to(env.device))
+    _, out_c = cpu.sensor.update(cpu.sensor.init_state(), depth_c)
+    _, _, _, bins_g = _sensor_frame(env.sensor, out_g)
+    _, gm, gd, bins_c = _sensor_frame(cpu.sensor, out_c)
+    calib = cpu.sensor.calib
+    nb = calib.sensor_params.num_bins
+    bt, bc = [b.cpu().numpy() for b in bins_g], [b.numpy() for b in bins_c]
+    # as in the sensor phase, the devices round the depth's m -> mm -> m
+    # arithmetic differently, so gradients within EDGE_BINS of a bin edge
+    # may switch bins; this prints how near an edge the switched ones lie
+    t_mag, t_dir = bin_coords(gm.numpy(), gd.numpy(), nb)
+    edge = np.minimum(np.abs(t_mag - np.round(t_mag)), np.abs(t_dir - np.round(t_dir)))
+    moved = ((bt[0] != bc[0]) | (bt[1] != bc[1])) & (np.tan(gm.numpy().astype(np.float64)) >= FINGER_NOISE_FLOOR)
+    worst_edge = float(edge[moved].max(initial=0.0))
+    print(f"factory reference (cuda vs cpu, {FACTORY_IDS[0]}, {env.cfg.num_envs} envs): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in diffs.items())
+          + f"; {depth_near:.4f} of finger depth pixels within 1e-6 m; the sensor on the CPU's depth maps: "
+          f"{int(moved.sum())} pixels above the noise floor take another LUT row, the farthest {worst_edge:.2e} bins "
+          f"from an edge (margin {EDGE_BINS})")
+    held = assert_bin_rule(out_g["tactile_rgb"].cpu().numpy(), out_c["tactile_rgb"].numpy(), gm.numpy(), gd.numpy(), nb,
+                           lut_spread(calib.poly_lut.numpy(), calib.features.numpy(), nb), bins_t=bt, bins_j=bc,
+                           edge_bins=EDGE_BINS, noise_floor=FINGER_NOISE_FLOOR)
+    print(f"factory reference: {held:.4f} of pixels take the same LUT rows on both devices and agree to 1e-4")
+    return dict(diffs, depth_share_1e_6=depth_near, tactile_held=held, worst_edge_bins=worst_edge)
+
+
+def factory_train_phase(device) -> dict:
+    """One PPO iteration on PegInsert at 128 envs under its tuned config
+    (rollouts 128, 4 epochs x 32 minibatches), on the (32, 32, 6) finger
+    images: K1 and K2 launch once per rollout step."""
+    from tacex_tpu_torch import envs
+    from tacex_tpu_torch.rl import PPO
+    from tacex_tpu_torch.rl.agents import agent_cfg_for
+
+    env_id = FACTORY_IDS[0]
+    cfg = agent_cfg_for(env_id, "ppo")
+    env = envs.make(env_id, device=device)
+    ppo = PPO(env, cfg)
+    ppo.init(0)
+    before = [p.detach().clone() for p in ppo.params]
+    rollouts, updates = [], []
+    ppo.rollout, ppo.update = _event_timed(ppo.rollout, rollouts), _event_timed(ppo.update, updates)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t0 = time.perf_counter()
+    metrics = ppo.train_step()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = _read_counters()
+    metrics = {k: float(v) for k, v in metrics.items()}
+    if not (np.isfinite(metrics["loss"]) and np.isfinite(metrics["reward_per_step"])):
+        raise AssertionError(f"factory train: metrics {metrics}")
+    if not all(bool((a != b).any()) for a, b in zip(ppo.params, before)):
+        raise AssertionError("factory train: a parameter tensor did not change")
+    if launches != {"deformation_pyramid": cfg.rollouts, "lut_shade": cfg.rollouts}:
+        raise AssertionError(f"factory train: launches {launches}, expected {cfg.rollouts} each")
+    rollout_s, update_s = rollouts[0][0].elapsed_time(rollouts[0][1]) / 1e3, updates[0][0].elapsed_time(updates[0][1]) / 1e3
+    steps = cfg.rollouts * env.cfg.num_envs
+    print(f"factory train: {env_id}, {env.cfg.num_envs} envs, rollouts {cfg.rollouts}, {cfg.learning_epochs} epochs x "
+          f"{cfg.mini_batches} minibatches, vision obs {tuple(ppo.obs['vision_obs'].shape[1:])}: {sec:.3f} s/iteration "
+          f"(the first, host clock) = {steps / sec:.1f} env-steps/s; rollout {rollout_s:.3f} s, update {update_s:.3f} s "
+          f"(CUDA events); launches {launches}; peak memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB; "
+          f"loss {metrics['loss']:.5f}, reward/step {metrics['reward_per_step']:.5f}")
+    return dict(launches=launches, sec_per_iter=sec, rollout_s=rollout_s, update_s=update_s,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def pole_phase(device) -> dict:
+    """Pole balancing at its default 1024 envs: reset and POLE_STEPS steps
+    with no host sync."""
+    from tacex_tpu_torch import envs
+
+    env = envs.make(POLE_ID, device=device)
+    n = env.cfg.num_envs
+    action = torch.zeros((n, 6), device=device)
+    state, obs = env.reset_all(env.init_state())
+    env.step(state, action)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    try:
+        state, obs = env.reset_all(env.init_state())
+        for _ in range(POLE_STEPS):
+            state, obs, reward, term, trunc, info = env.step(state, action)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / POLE_STEPS
+    _check_finite(POLE_ID, {"state": state, "obs": obs, "reward": reward})
+    shapes = {k: tuple(v.shape) for k, v in obs.items()}
+    if shapes != {"proprio_obs": (n, 14), "vision_obs": (n, 32, 32, 1)}:
+        raise AssertionError(f"{POLE_ID}: obs shapes {shapes}")
+    seen = float((obs["vision_obs"] < env.cfg.sensor_clipping[1]).float().mean())
+    print(f"pole: {POLE_ID}, {n} envs, reset + {POLE_STEPS} steps with no host sync: {step_ms:.3f} ms/step (reset "
+          f"included, host clock, synchronised); obs {shapes}; {seen:.4f} of depth pixels see the pole; "
+          f"reward {float(reward.mean()):.4f}")
+    return dict(step_ms=step_ms)
+
+
+def _sac_run(env_id, num_envs, device, guarded: int, unguarded: int) -> dict:
+    from tacex_tpu_torch import envs
+    from tacex_tpu_torch.rl import SAC
+    from tacex_tpu_torch.rl.agents import agent_cfg_for
+
+    cfg = agent_cfg_for(env_id, "sac")
+    sac = SAC(envs.make(env_id, num_envs=num_envs, device=device), cfg)
+    sac.init(0)
+    before = [p.detach().clone() for p in sac.actor_params]
+    for _ in range(unguarded):
+        sac.train_step()
+    torch.cuda.synchronize()
+    if sac.steps < cfg.warmup_steps:
+        raise AssertionError(f"sac: {sac.steps} env steps have not crossed warmup_steps {cfg.warmup_steps}")
+    _reset_counters()
+    torch.cuda.set_sync_debug_mode("error" if guarded else "default")
+    t0 = time.perf_counter()
+    try:
+        for _ in range(max(guarded, 1)):
+            metrics = sac.train_step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t0) / max(guarded, 1)
+    metrics = {k: float(v) for k, v in metrics.items()}
+    if not all(np.isfinite(v) for v in metrics.values()) or metrics["critic_loss"] <= 0.0:
+        raise AssertionError(f"sac {env_id}: metrics {metrics}")
+    if not all(bool((a != b).any()) for a, b in zip(sac.actor_params, before)):
+        raise AssertionError(f"sac {env_id}: an actor parameter did not change")
+    return dict(cfg=cfg, sec_per_step=sec, metrics=metrics, launches=_read_counters(), buffer=sac.buffer.size)
+
+
+def sac_phase(device) -> dict:
+    """SAC: the privileged task at 512 envs under the config of
+    ``logs/sac_privileged_r05/config.json`` (one train step crosses
+    ``warmup_steps``, then SAC_GUARDED_STEPS with no host sync), and the
+    tactile Taxim-Fots task at 4096 envs under its SAC config."""
+    out = {}
+    for env_id, n, guarded, unguarded in ((PRIVILEGED_ID, SAC_PRIVILEGED_ENVS, SAC_GUARDED_STEPS, 1),
+                                          (ENV_ID, NUM_ENVS, 0, SAC_VISION_STEPS - 1)):
+        r = _sac_run(env_id, n, device, guarded, unguarded)
+        c, m = r.pop("cfg"), r["metrics"]
+        print(f"sac: {env_id}, {n} envs, batch {c.batch_size}, buffer {c.buffer_size} ({r['buffer']} filled), "
+              f"rollout {c.rollout_steps} x {c.grad_steps} grad steps, warmup {c.warmup_steps}: {r['sec_per_step']:.4f} "
+              f"s/train-step ({'no host sync, ' if guarded else ''}host clock, synchronised); critic loss "
+              f"{m['critic_loss']:.5f}, actor loss {m['actor_loss']:.5f}, alpha {m['alpha']:.5f}; launches {r['launches']}")
+        out[env_id] = r
+    return out
 
 
 def _state_to(state, device):
@@ -798,18 +1114,31 @@ def main() -> None:
     privileged = privileged_train_phase(device)
     env_phase(device)
     shading = shading_phase(device)
+    factory = factory_phase(device)
+    factory_train = factory_train_phase(device)
+    pole = pole_phase(device)
+    sac = sac_phase(device)
 
+    kernels.update(factory.pop("kernels"))
     sources = {
         "deformation_pyramid": ("tacex_tpu_torch/csrc/pyramid.cu", "tacex_tpu/ops/pallas_pyramid.py:61"),
         "lut_shade": ("tacex_tpu_torch/csrc/lut_shade.cu", "tacex_tpu/ops/pallas_lut.py:63"),
     }
+    # (kernel, entry, the main path that runs it at that shape, its launches there)
+    rows = (
+        ("deformation_pyramid", "pyramid warp 24x32", "ppo_train_4096", train["launches"]),
+        ("deformation_pyramid", "pyramid warp 32x32", "factory_step_128", factory["launches"]),
+        ("deformation_pyramid", "pyramid cluster 240x320", "sensor_320x240_256", sensor["launches"]),
+        ("lut_shade", "lut full table 4096x768", "ppo_train_4096", train["launches"]),
+        ("lut_shade", "lut subtable 4096x768", "compact_render_320x240_16", shading["compact_launches"]),
+        ("lut_shade", "lut full table 256x1024", "factory_step_128", factory["launches"]),
+        ("lut_shade", "lut full table 256x76800", "sensor_320x240_256", sensor["launches"]),
+    )
     report = {
         "kernels": [
-            dict(name=name, route="cuda", source=src, replaces=rep, launches=train["launches"][name],
-                 paths={"ppo_train_4096": train["launches"][name], "env_step_4096": run["launches"][name],
-                        "sensor_320x240_256": sensor["launches"][name]},
-                 **kernels[name])
-            for name, (src, rep) in sources.items()
+            dict(name=f"{name}[{label}]", route="cuda", source=sources[name][0], replaces=sources[name][1],
+                 launches=launches[name], path=path, **kernels[label])
+            for name, label, path, launches in rows
         ],
         "gpu": gpu,
         "num_envs": NUM_ENVS,
@@ -822,7 +1151,11 @@ def main() -> None:
         "sensor_worst_edge_bins": sensor["worst_edge_bins"],
         "train": {k: v for k, v in train.items() if k != "launches"},
         "privileged_train": privileged,
-        "shading_320x240_16_ms": shading,
+        "shading_320x240_16_ms": {k: v for k, v in shading.items() if k != "compact_launches"},
+        "factory": factory,
+        "factory_train": factory_train,
+        "pole": pole,
+        "sac": sac,
     }
     print(json.dumps(report))
     card = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

@@ -19,8 +19,9 @@ the card's name and power limit:
   * with ``--baseline``, the kernels of another version of ``csrc``
     (``pyramid.cu`` and ``lut_shade.cu`` with the same C interface, e.g. a
     ``git archive`` of an earlier commit) beside this tree's, at the
-    flagship shapes, in the order baseline, this tree, this tree, baseline,
-    each timed both ways below.
+    flagship shapes and at the Factory PegInsert frame (the 256 finger
+    images of 32x32 at 128 envs), in the order baseline, this tree, this
+    tree, baseline, each timed both ways below.
 
 Times are device times from CUDA events around calls queued behind a spin on
 the card (``chip_smoke._timed_ms``). The baseline comparison also gives the
@@ -171,6 +172,19 @@ def flagship_frame(device) -> dict:
                 table=env.sensor.calib.poly_lut.reshape(-1, 18).contiguous())
 
 
+def factory_frame(device) -> dict:
+    """The kernels' inputs on PegInsert's 2N finger images, one step in."""
+    from tacex_tpu_torch import envs
+
+    env = envs.make(chip_smoke.FACTORY_IDS[0], device=device)
+    state, _ = env.reset_all(env.init_state())
+    state, *_ = env.step(state, chip_smoke._factory_action(env.cfg.num_envs, device))
+    joined, mask, sigmas, idx, _ = chip_smoke._depth_frame(env.sensor, env._finger_depths(state.arm, state.held))
+    sigmas = tuple((float(sx), float(sy)) for sx, sy in sigmas)
+    return dict(joined=joined, mask=mask, sigmas=sigmas, idx=idx, feats=env.sensor.calib.features,
+                table=env.sensor.calib.poly_lut.reshape(-1, 18).contiguous())
+
+
 def pyramid_probe(work: Path, device) -> None:
     sim_sigmas = chip_smoke.sensor_sigmas((240, 320))
     taps, ky, kx = K1._packed_taps(sim_sigmas, 240, 320)
@@ -250,20 +264,25 @@ def lut_probe(work: Path, device, frame: dict) -> None:
               f"random rows {times['random rows']:.4f} ms, max_abs_err {err:.2e}")
 
 
-def baseline_probe(work: Path, frame: dict, baseline: Path) -> None:
-    """Both kernels of ``baseline`` and of this tree at the flagship shapes,
-    each launched as its wrapper does (a new output a call), timed queued
-    behind a spin and back to back, and held to its plain version."""
-    joined, mask, sigmas = frame["joined"], frame["mask"], frame["sigmas"]
-    idx, feats, table = frame["idx"], frame["feats"], frame["table"]
-    n, h, w = joined.shape
-    taps, ky, kx = K1._packed_taps(sigmas, h, w)
-    stream = torch.cuda.current_stream().cuda_stream
+def baseline_probe(work: Path, frames: list[dict], baseline: Path) -> None:
+    """Both kernels of ``baseline`` and of this tree on each frame, each
+    launched as its wrapper does (a new output a call), timed queued behind
+    a spin and back to back, and held to its plain version."""
     sources = {}
     for side, csrc in (("baseline", baseline), ("this tree", _build.CSRC)):
         for kernel in ("pyramid", "lut_shade"):
             sources[f"{'base' if side == 'baseline' else 'tree'}_{kernel}"] = (csrc / f"{kernel}.cu").read_text()
     libs = _compile(sources, work)
+    for frame in frames:
+        _baseline_frame(libs, frame)
+
+
+def _baseline_frame(libs: dict, frame: dict) -> None:
+    joined, mask, sigmas = frame["joined"], frame["mask"], frame["sigmas"]
+    idx, feats, table = frame["idx"], frame["feats"], frame["table"]
+    n, h, w = joined.shape
+    taps, ky, kx = K1._packed_taps(sigmas, h, w)
+    stream = torch.cuda.current_stream().cuda_stream
 
     def pyramid_call(lib):
         lib.tacex_deformation_pyramid.argtypes = PYRAMID_ARGS
@@ -322,7 +341,7 @@ def main() -> None:
         pyramid_probe(Path(work), device)
         lut_probe(Path(work), device, frame)
         if args.baseline is not None:
-            baseline_probe(Path(work), frame, args.baseline.resolve())
+            baseline_probe(Path(work), [frame, factory_frame(device)], args.baseline.resolve())
 
 
 if __name__ == "__main__":

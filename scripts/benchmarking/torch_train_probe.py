@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where one PPO iteration of the PyTorch/CUDA port spends its time, on one NVIDIA GPU.
 
-    python3 scripts/benchmarking/torch_train_probe.py [--task ID] [--num_envs N] [--top K]
+    python3 scripts/benchmarking/torch_train_probe.py [--task ID] [--num_envs N] [--rollouts T] [--top K]
 
 It builds the task's env and its tuned ``PPO`` trainer on the card, runs one
 warm-up ``train_step``, one timed with the host's clock (each of the
@@ -13,6 +13,9 @@ kernels launched inside, that time's share of the untraced wall time (the
 rest is the device waiting for the host), and the number of kernels; then
 the kernels that took the most device time. It imports nothing of JAX, and
 exits non-zero without a CUDA device or if the profiler saw no device time.
+``--rollouts`` cuts the tuned rollout length (a Factory step launches ~10^4
+kernels, so its 128-step rollout is long to trace); the per-step line
+divides the rollout span by it.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ def main() -> None:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--task", default="TacEx-Ball-Rolling-Taxim-Fots-v0")
     p.add_argument("--num_envs", type=int, default=4096)
+    p.add_argument("--rollouts", type=int, default=None, help="override the task's tuned rollout length")
     p.add_argument("--top", type=int, default=12, help="how many kernels to list")
     args = p.parse_args()
     if not torch.cuda.is_available():
@@ -66,7 +70,7 @@ def main() -> None:
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip())
-    cfg = agent_cfg_for(args.task, "ppo")
+    cfg = agent_cfg_for(args.task, "ppo", rollouts=args.rollouts)
     ppo = PPO(envs.make(args.task, num_envs=args.num_envs), cfg)
     ppo.init(0)
     wall: dict[str, float] = {}
@@ -97,6 +101,10 @@ def main() -> None:
         busy = span.device_time_total / 1e6
         print(f"{name:<12}{untraced[name]:>9.3f}{span.cpu_time_total / 1e6:>10.3f}{busy:>10.3f}"
               f"{100 * busy / untraced[name]:>8.1f}{_launches(span):>9d}")
+    roll = spans["ppo.rollout"]
+    print(f"per rollout step (policy sample + env step): {1e3 * untraced['rollout'] / cfg.rollouts:.3f} ms wall, "
+          f"{1e3 * roll.device_time_total / 1e6 / cfg.rollouts:.3f} ms device, "
+          f"{_launches(roll) / cfg.rollouts:.1f} kernels")
 
     by_name: dict[str, list] = {}
     for k in kernels:

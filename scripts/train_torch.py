@@ -1,14 +1,18 @@
-"""Train PPO on a task of the PyTorch/CUDA port (``tacex_tpu_torch``).
+"""Train PPO or SAC on a task of the PyTorch/CUDA port (``tacex_tpu_torch``).
 
 The port's counterpart of ``scripts/train.py``: the env and the trainer run
 on one CUDA device (``--device cpu`` runs them on the CPU). It prints one
 JSON line per logged iteration, writes ``config.json`` and ``metrics.jsonl``
-into ``--checkpoint_dir`` and saves the network's ``state_dict`` there with
-``torch.save`` (the last three checkpoints are kept).
+into ``--checkpoint_dir`` and saves the policy's ``state_dict`` there with
+``torch.save`` (PPO's actor-critic, SAC's actor; the last three checkpoints
+are kept). ``--rollouts`` sets PPO's rollout length or SAC's env steps per
+iteration.
 
 Usage:
   python scripts/train_torch.py --task TacEx-Ball-Rolling-Taxim-Fots-v0 \\
       --num_envs 4096 --iterations 200 --checkpoint_dir runs/br
+  python scripts/train_torch.py --task TacEx-Ball-Rolling-Privileged-v0 \\
+      --algorithm sac --num_envs 512 --iterations 4000
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ def _parse_kv(pairs: list[str]) -> dict:
 def main(argv: list[str] | None = None) -> None:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--task", default="TacEx-Ball-Rolling-Taxim-Fots-v0")
+    p.add_argument("--algorithm", choices=["ppo", "sac"], default="ppo")
     p.add_argument("--num_envs", type=int, default=1024)
     p.add_argument("--iterations", type=int, default=100)
     p.add_argument("--rollouts", type=int, default=None, help="override the per-task tuned rollout length (rl/agents.py)")
@@ -57,15 +62,20 @@ def main(argv: list[str] | None = None) -> None:
     import torch
 
     from tacex_tpu_torch import envs
-    from tacex_tpu_torch.rl import PPO
+    from tacex_tpu_torch.rl import PPO, SAC
     from tacex_tpu_torch.rl.agents import agent_cfg_for
 
     env_overrides = _parse_kv(args.env_cfg)
     env = envs.make(args.task, num_envs=args.num_envs, device=args.device, **env_overrides)
-    cfg = agent_cfg_for(args.task, "ppo", rollouts=args.rollouts, **_parse_kv(args.agent_cfg))
-    ppo = PPO(env, cfg)
-    print(f"agent cfg (ppo): {cfg}")
-    ppo.init(args.seed)
+    if args.algorithm == "sac":
+        cfg = agent_cfg_for(args.task, "sac", rollout_steps=args.rollouts, **_parse_kv(args.agent_cfg))
+        trainer, steps_per_iter = SAC(env, cfg), args.num_envs * cfg.rollout_steps
+    else:
+        cfg = agent_cfg_for(args.task, "ppo", rollouts=args.rollouts, **_parse_kv(args.agent_cfg))
+        trainer, steps_per_iter = PPO(env, cfg), args.num_envs * cfg.rollouts
+    print(f"agent cfg ({args.algorithm}): {cfg}")
+    trainer.init(args.seed)
+    policy = trainer.actor if args.algorithm == "sac" else trainer.net
 
     run_dir = Path(args.checkpoint_dir).absolute() if args.checkpoint_dir else None
     metrics_fp = None
@@ -81,15 +91,15 @@ def main(argv: list[str] | None = None) -> None:
     try:
         for it in range(args.iterations):
             t0 = time.time()
-            metrics = ppo.train_step()
+            metrics = trainer.train_step()
             # the iteration's one read-back, outside train_step; it waits for the device
             metrics = {k: float(v) for k, v in metrics.items()}
             dt = time.time() - t0
             if it % args.log_interval == 0:
                 line = {
                     "iter": it,
-                    "env_steps": ppo.steps,
-                    "steps_per_sec": round(args.num_envs * cfg.rollouts / dt, 1),
+                    "env_steps": trainer.steps,
+                    "steps_per_sec": round(steps_per_iter / dt, 1),
                     **{k: round(v, 5) for k, v in metrics.items()},
                 }
                 print(json.dumps(line), flush=True)
@@ -98,7 +108,7 @@ def main(argv: list[str] | None = None) -> None:
                     metrics_fp.flush()
             if run_dir is not None and (it + 1) % args.checkpoint_interval == 0:
                 path = run_dir / f"ckpt_{it}.pt"
-                torch.save(ppo.net.state_dict(), path)
+                torch.save(policy.state_dict(), path)
                 saved.append(path)
                 for old in saved[:-KEEP_CHECKPOINTS]:
                     old.unlink(missing_ok=True)
@@ -108,7 +118,7 @@ def main(argv: list[str] | None = None) -> None:
             metrics_fp.close()
     if metrics_fp is not None:
         print(f"metrics jsonl -> {run_dir / 'metrics.jsonl'}")
-    print(f"done: {ppo.steps} env steps in {time.time() - t_start:.1f}s")
+    print(f"done: {trainer.steps} env steps in {time.time() - t_start:.1f}s")
 
 
 if __name__ == "__main__":

@@ -7,11 +7,13 @@ Pallas kernels as hand-written CUDA kernels for Hopper (``csrc/``, built at
 first use by ``ops/_build.py``). It imports torch and numpy and never jax.
 
 Layers, from the trainer down (``rl.PPO(envs.make("TacEx-Ball-Rolling-Taxim-Fots-v0"))``):
-  rl             — PPO (rollout, GAE, minibatch updates), the actor-critic, per-task configs
-  physics/rigid  — Franka IK + servo, sphere contact
-  render         — analytic orthographic depth camera
+  rl             — PPO and SAC, the actor-critic, the SAC actor and twin critics, per-task configs
+  physics/rigid  — Franka IK + servo, sphere contact, the 9-DOF arm's dynamics and OSC
+  ops            — the two kernels' wrappers, blurs, resizes, signed-distance functions
+  render         — analytic orthographic depth camera, triangle-mesh rasterizer
   sensors        — GelSight: Taxim optical (pyramid kernel, LUT-shade kernel), FOTS markers
-  envs           — dones, rewards, curriculum, masked resets, observations
+  envs           — ball rolling, Factory (held-asset contact), pole balancing: dones,
+                   rewards, masked resets, observations
 """
 
 __version__ = "0.1.0"

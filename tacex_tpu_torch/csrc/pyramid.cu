@@ -14,19 +14,23 @@
 //
 // Two designs, chosen per shape by tacex_deformation_pyramid_plan() below:
 //
-// 1. One warp per image (W <= 32, H == 24: the flagship's 24x32 tactile
-//    image). What bounds it: ~28 MB of device memory at 4096 images (one f32
-//    read, one mask byte, one f32 write a pixel), 8.4 us at 3.35 TB/s; the
-//    ~15 non-trivial taps a pixel per pass are far below the FP32 rate.
-//    What the design does about it: a block holds 8 images, one per warp;
-//    the warp moves its image in and out with 16-byte loads and stores
-//    through a per-warp shared tile; lane = column, and each lane keeps its
-//    whole column (x, the pinned copy and the mask bits) in registers. H is a
-//    template parameter and each pass's tap count is dispatched to a template,
-//    so the H pass is fully unrolled with reflected row indices resolved at
-//    compile time (no divide, no branch, no shared memory); the W pass reads
-//    the neighbouring columns with warp shuffles from lanes reflected once
-//    per level. No block barrier: only __syncwarp around the tile.
+// 1. One warp per image (W <= 32, H = 24 or 32: the flagship's 24x32
+//    tactile image and the Factory fingers' 32x32 ones). What bounds it:
+//    device memory, one f32 read, one mask byte and one f32 write a pixel:
+//    ~28 MB at 4096 images of 24x32, 8.4 us at 3.35 TB/s, and 2.4 MB at 256
+//    images of 32x32, 0.7 us, less than a launch takes; the <= 15 taps a
+//    pixel per pass are far below the FP32 rate. What the design does about
+//    it: a block holds 8 images, one per warp; the warp moves its image in
+//    and out with 16-byte loads and stores through a per-warp shared tile
+//    (8 x H x 32 x 5 bytes a block: 30 KB at H = 24, 40 KB at H = 32, under
+//    the 48 KB of static shared memory); lane = column, and each lane keeps
+//    its whole column (x, the pinned copy and the mask bits) in registers. H
+//    is a template parameter and each pass's tap count is dispatched to a
+//    template, so the H pass is fully unrolled with reflected row indices
+//    resolved at compile time (no divide, no branch, no shared memory); the
+//    W pass reads the neighbouring columns with warp shuffles from lanes
+//    reflected once per level. No block barrier: only __syncwarp around the
+//    tile.
 //
 // 2. One thread-block cluster per image (every other shape, up to what
 //    shared memory holds: 240x320 takes a cluster of 8). What bounds it: at
@@ -78,7 +82,6 @@ __host__ __device__ constexpr int reflect(int j, int n) {
 __host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
 // ---------------------------------------------------------------- 1. warp per image
-constexpr int kWarpH = 24;
 constexpr int kWarpMaxK = 15;
 constexpr int kWarpsPerBlock = 8;
 
@@ -152,6 +155,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 pyramid_warp_kernel(const float* __restrict__ joined, const uint8_t* __restrict__ mask,
                     float* __restrict__ out, int n, int w, const __grid_constant__ PyramidTaps p) {
   static_assert(H <= 32, "the column's mask bits live in one 32-bit word");
+  static_assert(kWarpsPerBlock * H * 32 * 5 <= 48 * 1024, "the tiles exceed 48 KB of static shared memory");
   __shared__ float4 tile4[kWarpsPerBlock][H * 32 / 4];
   __shared__ uint4 mtile4[kWarpsPerBlock][H * 32 / 16];
   const int warp = threadIdx.x >> 5;
@@ -601,7 +605,7 @@ cudaLaunchConfig_t cluster_config(const ClusterParams& c, int n, cudaStream_t s,
 }
 
 bool warp_path(int h, int w, const int* ky, const int* kx, int levels) {
-  if (h != kWarpH || w > 32 || (h * w) % 16 != 0) return false;
+  if ((h != 24 && h != 32) || w > 32 || (h * w) % 16 != 0) return false;
   for (int l = 0; l < levels; ++l)
     if (ky[l] > kWarpMaxK || kx[l] > kWarpMaxK) return false;
   return true;
@@ -653,7 +657,10 @@ extern "C" int tacex_deformation_pyramid(const float* joined, const uint8_t* mas
     }
     for (int i = 0; i < total; ++i) p.taps[i] = taps[i];
     const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    pyramid_warp_kernel<kWarpH><<<blocks, kWarpsPerBlock * 32, 0, s>>>(joined, mask, out, n, w, p);
+    if (h == 24)
+      pyramid_warp_kernel<24><<<blocks, kWarpsPerBlock * 32, 0, s>>>(joined, mask, out, n, w, p);
+    else
+      pyramid_warp_kernel<32><<<blocks, kWarpsPerBlock * 32, 0, s>>>(joined, mask, out, n, w, p);
     return cudaGetLastError();
   }
 

@@ -1,7 +1,7 @@
 """Ball-rolling task registration (the ids mirror the reference gym ids).
 
-The two ``Uipc`` ids of the JAX package belong to the soft-body world and
-stay unregistered until it is ported."""
+The two ``Uipc`` ids of the JAX package run in the soft-body world, which
+the port does not have: they are not registered here."""
 
 from ..base import register
 from .env import BallRollingEnv, BallRollingEnvCfg

@@ -11,32 +11,10 @@ has no counterpart and is ignored.
 
 from __future__ import annotations
 
-import dataclasses
-
-import numpy as np
-import torch
-
-from ...core.device import DEFAULT_DEVICE, resolve
-from ...physics.rigid.franka import ArmState
-from ...sensors.gelsight.sensor import GelSightSensorState
-from .env import BallRollingState, DomainRandomization
-
-
-def _build(cls, leaves: dict, device, nested: dict):
-    kwargs = {}
-    for f in dataclasses.fields(cls):
-        v = leaves[f.name]
-        if f.name in nested:
-            kwargs[f.name] = _build(nested[f.name], v, device, {})
-        else:
-            kwargs[f.name] = torch.from_numpy(np.array(v, copy=True)).to(device)
-    return cls(**kwargs)
+from ...core.device import DEFAULT_DEVICE
+from .. import convert
+from .env import BallRollingState
 
 
 def state_from_numpy(leaves: dict, device=DEFAULT_DEVICE) -> BallRollingState:
-    return _build(
-        BallRollingState,
-        leaves,
-        resolve(device),
-        {"arm": ArmState, "sensor": GelSightSensorState, "dr": DomainRandomization},
-    )
+    return convert.state_from_numpy(BallRollingState, leaves, device)

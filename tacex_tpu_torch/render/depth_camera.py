@@ -3,8 +3,9 @@
 Port of ``tacex_tpu/render/depth_camera.py``: scene geometry is analytic
 (spheres, boxes, capsules, planes in fixed-capacity tensors) and depth is the
 exact ray-primitive intersection of parallel rays cast along the camera axis
-over the pixel grid (orthographic). The whole env batch is one set of tensor
-ops. The triangle-mesh branch waits for the rasterizer's port.
+over the pixel grid (orthographic). A scene may also carry a world-space
+triangle soup, rasterized in each camera's frame by ``mesh_raster``. The
+whole env batch is one set of tensor ops.
 
 Conventions: camera +Z forward, +X right (image width), +Y down (image
 height). ``extent`` is the (width, height) in meters of the imaged window.
@@ -17,6 +18,7 @@ import dataclasses
 import torch
 
 from ..core import maths
+from . import mesh_raster
 
 BIG = 1e9
 
@@ -30,7 +32,9 @@ class SdfScene:
                            (half-extent x <= 0 disables)
     capsules:(N, C, 8)  -> endpoint a xyz, endpoint b xyz, radius, enabled
     planes:  (N, P, 4)  -> unit normal xyz, offset d (n.x = d)
-    triangles: (N, T, 3, 3) world-space triangles (not ported yet)
+    triangles: (N, T, 3, 3) optional world-space triangle soup (padded with
+                           zero, degenerate triangles), rasterized by
+                           ``render.mesh_raster``
     """
 
     spheres: torch.Tensor
@@ -120,8 +124,6 @@ def render_depth_batch(
     far: float,
 ) -> torch.Tensor:
     """Orthographic depth (N, h, w) in meters for the whole env batch."""
-    if scene.triangles is not None and scene.triangles.shape[1] > 0:
-        raise NotImplementedError("triangle scenes need the mesh rasterizer, which is not ported yet")
     w, h = resolution
     ex, ey = extent
     dev = cam_pos.device
@@ -144,6 +146,9 @@ def render_depth_batch(
         ],
         dim=-1,
     ).amin(-1)
+    if scene.triangles is not None and scene.triangles.shape[1] > 0:
+        tris_cam = mesh_raster.world_tris_to_cam(cam_pos, cam_quat, scene.triangles)
+        t = torch.minimum(t, mesh_raster.raster_depth(tris_cam, origins_cam[0, :, :2]))
     t = torch.clamp(t, max=far)
     return t.reshape(-1, h, w)
 
@@ -158,7 +163,9 @@ def render_depth(
     resolution: tuple[int, int],
     extent: tuple[float, float],
     far: float,
+    scene_triangles: torch.Tensor | None = None,  # (T, 3, 3) world-space
 ) -> torch.Tensor:
     """Orthographic depth (h, w) in meters for one env."""
-    scene = SdfScene(scene_spheres[None], scene_boxes[None], scene_capsules[None], scene_planes[None])
+    tris = None if scene_triangles is None else scene_triangles[None]
+    scene = SdfScene(scene_spheres[None], scene_boxes[None], scene_capsules[None], scene_planes[None], tris)
     return render_depth_batch(cam_pos[None], cam_quat[None], scene, resolution, extent, far)[0]

@@ -9,11 +9,14 @@ env finds its config when it is ported. The tuning splits by observation:
   * vision tasks: rollouts 64, epochs 4, mini-batches 32, KL target 0.008,
     entropy 0;
   * Factory: horizon 128, gamma 0.995.
+SAC configs (``SAC_AGENT_CFGS``) exist for the privileged ball-rolling task,
+pole balancing and the tactile Taxim-Fots task.
 """
 
 from __future__ import annotations
 
 from .ppo import PPOConfig
+from .sac import SACConfig
 
 _STATE_PPO = dict(
     rollouts=24, learning_epochs=8, mini_batches=4,
@@ -52,14 +55,25 @@ PPO_AGENT_CFGS: dict[str, dict] = {
 }
 
 
-def agent_cfg_for(task_id: str, algorithm: str = "ppo", **overrides) -> PPOConfig:
-    """Tuned config for a task. ``overrides`` that are not None (a user's
-    ``--rollouts``) win over the tuned values; unknown tasks take the
-    library defaults."""
-    if algorithm == "sac":
-        raise NotImplementedError("SAC is not ported yet: only algorithm='ppo' is available")
-    if algorithm != "ppo":
+# task id -> SAC kwargs (reference skrl_sac_cfg.yaml: batch 256, lr 1e-4 for
+# the state task; the vision task flattens its 24x32x3 image into the buffer,
+# ~9 KB an observation, so the buffer holds 20,000 transitions)
+SAC_AGENT_CFGS: dict[str, dict] = {
+    "TacEx-Ball-Rolling-Privileged-v0": dict(batch_size=256, actor_lr=1e-4, critic_lr=1e-4),
+    "TacEx-Pole-Balancing-Base-v0": dict(batch_size=256),
+    "TacEx-Ball-Rolling-Taxim-Fots-v0": dict(
+        batch_size=256, buffer_size=20_000, actor_lr=3e-4, critic_lr=5e-4, rollout_steps=4, grad_steps=2,
+    ),
+}
+
+
+def agent_cfg_for(task_id: str, algorithm: str = "ppo", **overrides) -> PPOConfig | SACConfig:
+    """Tuned config of ``algorithm`` ("ppo" or "sac") for a task.
+    ``overrides`` that are not None (a user's ``--rollouts``) win over the
+    tuned values; unknown tasks take the library defaults."""
+    if algorithm not in ("ppo", "sac"):
         raise ValueError(f"unknown algorithm {algorithm!r}")
-    base = dict(PPO_AGENT_CFGS.get(task_id, {}))
+    table, cls = (SAC_AGENT_CFGS, SACConfig) if algorithm == "sac" else (PPO_AGENT_CFGS, PPOConfig)
+    base = dict(table.get(task_id, {}))
     base.update({k: v for k, v in overrides.items() if v is not None})
-    return PPOConfig(**base)
+    return cls(**base)

@@ -16,7 +16,10 @@ from tacex_tpu_torch.core import device as tdevice
 from tacex_tpu_torch.envs.ball_rolling.convert import state_from_numpy
 from tacex_tpu_torch.envs.ball_rolling.env import BallRollingEnv
 from tacex_tpu_torch.envs.base import DirectRLEnv
-from tacex_tpu_torch.rl import PPO
+from tacex_tpu_torch.envs.convert import state_from_numpy as any_state_from_numpy
+from tacex_tpu_torch.envs.factory.env import FactoryEnv
+from tacex_tpu_torch.envs.pole_balancing.env import PoleBalancingEnv
+from tacex_tpu_torch.rl import PPO, SAC
 from tacex_tpu_torch.rl.networks import ActorCritic, VisionEncoder
 from tacex_tpu_torch.sensors.gelsight.sensor import GelSightSensor
 from tacex_tpu_torch.sensors.gelsight.sensor_cfg import gelsight_mini_cfg
@@ -31,7 +34,16 @@ ENTRY_POINTS = {
     "state_from_numpy": state_from_numpy,
     "ActorCritic": ActorCritic,
     "VisionEncoder": VisionEncoder,
+    "FactoryEnv": FactoryEnv,
+    "PoleBalancingEnv": PoleBalancingEnv,
+    "envs.convert.state_from_numpy": any_state_from_numpy,
 }
+OTHER_IDS = [
+    "TacEx-Factory-PegInsert-Direct-v0",
+    "TacEx-Factory-GearMesh-Direct-v0",
+    "TacEx-Factory-NutThread-Direct-v0",
+    "TacEx-Pole-Balancing-Base-v0",
+]
 
 
 @pytest.fixture
@@ -48,6 +60,19 @@ def test_entry_point_defaults_to_the_card(name):
 def test_make_without_a_card_raises(no_card):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         envs.make(ENV_ID, num_envs=2)
+
+
+@pytest.mark.parametrize("env_id", OTHER_IDS)
+def test_factory_and_pole_ids_need_the_card_unless_asked(no_card, env_id):
+    """The Factory and pole ids take the card by default (at their default
+    widths, 128 and 1024 envs) and raise without one; on request they run
+    on the CPU, and so does SAC on them."""
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        envs.make(env_id)
+    env = envs.make(env_id, num_envs=2, device="cpu")
+    assert env.device.type == "cpu" and env.cfg.num_envs == 2
+    assert envs.base._REGISTRY[env_id][1]().num_envs == (1024 if "Pole" in env_id else 128)
+    assert "device" not in inspect.signature(SAC).parameters and SAC(env).device.type == "cpu"
 
 
 @pytest.mark.parametrize(

@@ -34,7 +34,7 @@ def sensor_sigmas(hw):
 SLICE_SIGMAS_24x32 = sensor_sigmas((24, 32))
 SIGMAS = ((3.0, 2.2), (1.5, 1.1), (0.8, 0.6), (1.0, 0.75))
 # the design each image size below takes: 0 a warp per image, else the CTAs of its cluster
-PLANS = {(24, 32): 0, (48, 64): 1, (120, 160): 2, (180, 240): 4, (240, 320): 8}
+PLANS = {(24, 32): 0, (32, 32): 0, (48, 64): 1, (120, 160): 2, (180, 240): 4, (240, 320): 8}
 
 pytestmark = pytest.mark.cuda
 
@@ -50,6 +50,7 @@ def cuda():
     "shape,sigmas",
     [
         ((64, 24, 32), SLICE_SIGMAS_24x32),  # a warp per image
+        ((256, 32, 32), sensor_sigmas((32, 32))),  # a warp per image: the Factory fingers' 2N images
         ((5, 48, 64), SIGMAS),  # a one-CTA cluster per image
         ((3, 24, 32), SLICE_SIGMAS_24x32),  # N not a multiple of the 8 images a block holds
         ((2, 240, 320), sensor_sigmas((240, 320))),  # the default sensor: a cluster of 8 CTAs

@@ -29,14 +29,26 @@ SLICE_MODULES = [
     "tacex_tpu_torch.sensors.gelsight.sensor_cfg",
     "tacex_tpu_torch.sensors.gelsight.sensor",
     "tacex_tpu_torch.render.depth_camera",
+    "tacex_tpu_torch.render.mesh_raster",
+    "tacex_tpu_torch.assets.meshes",
+    "tacex_tpu_torch.ops.sdf",
     "tacex_tpu_torch.physics.rigid.franka",
     "tacex_tpu_torch.physics.rigid.contact",
+    "tacex_tpu_torch.physics.rigid.bodies",
+    "tacex_tpu_torch.physics.rigid.articulation",
     "tacex_tpu_torch.envs.base",
+    "tacex_tpu_torch.envs.convert",
     "tacex_tpu_torch.envs.ball_rolling.env",
     "tacex_tpu_torch.envs.ball_rolling.convert",
+    "tacex_tpu_torch.envs.factory.contact",
+    "tacex_tpu_torch.envs.factory.env",
+    "tacex_tpu_torch.envs.factory",
+    "tacex_tpu_torch.envs.pole_balancing.env",
+    "tacex_tpu_torch.envs.pole_balancing",
     "tacex_tpu_torch.envs",
     "tacex_tpu_torch.rl.networks",
     "tacex_tpu_torch.rl.ppo",
+    "tacex_tpu_torch.rl.sac",
     "tacex_tpu_torch.rl.agents",
     "tacex_tpu_torch.rl",
 ]
@@ -48,8 +60,10 @@ def test_import_loads_no_jax():
         f"for m in {SLICE_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "from tacex_tpu_torch import envs\n"
-        "envs.make('TacEx-Ball-Rolling-Taxim-Fots-v0', num_envs=2, device='cpu')\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tacex_tpu'))\n"
+        "for env_id in ('TacEx-Ball-Rolling-Taxim-Fots-v0', 'TacEx-Factory-PegInsert-Direct-v0', "
+        "'TacEx-Pole-Balancing-Base-v0'):\n"
+        "    envs.make(env_id, num_envs=2, device='cpu')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tacex_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

@@ -188,8 +188,12 @@ def test_agent_cfg_matches_jax(task):
 
 
 def test_agent_cfg_sac_is_not_ported():
-    with pytest.raises(NotImplementedError, match="SAC"):
-        tagents.agent_cfg_for("TacEx-Ball-Rolling-Privileged-v0", "sac")
+    """SAC is ported now: every SAC config, and the default, is the JAX one;
+    an unknown algorithm still raises."""
+    for task in sorted(jagents.SAC_AGENT_CFGS) + ["TacEx-Unknown-v0"]:
+        assert tagents.agent_cfg_for(task, "sac").to_dict() == jagents.agent_cfg_for(task, "sac").to_dict()
+    with pytest.raises(ValueError, match="algorithm"):
+        tagents.agent_cfg_for("TacEx-Ball-Rolling-Privileged-v0", "ddpg")
 
 
 @pytest.mark.parametrize("vision", [True, False], ids=["vision", "proprio"])
