@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one NVIDIA GPU: the flagship env step,
 PPO training on it, the other ball-rolling tasks, every shading path, the
-Factory tasks, pole balancing and SAC.
+Factory tasks, pole balancing, SAC and the soft FEM gel pad of the UIPC
+ball-rolling tasks.
 
     python3 chip_smoke.py
 
@@ -67,7 +68,19 @@ package beside this file; it imports nothing of JAX. In order it:
  14. trains SAC on the privileged task at 512 envs under the config of
      ``logs/sac_privileged_r05`` (one train step crosses the warm-up, five
      more run under sync-debug "error") and on the flagship at 4096 envs
-     under its SAC config (two train steps), with losses and temperature.
+     under its SAC config (two train steps), with losses and temperature;
+ 15. steps ``TacEx-Ball-Rolling-Tactile-RGB-Uipc-v0`` (the FEM gel pad, one
+     batched IPC Newton solve a step) at its registered 16 envs pressing the
+     gel onto the ball: reset, a warm-up step, 5 steps under sync-debug
+     "error" with K1 and K2 launched once a step; prints ms/step, CUDA
+     kernels a step, peak memory, the envs in contact and the gel's largest
+     displacement; holds K1 and K2 on its (16, 24, 32) frame to their plain
+     versions; holds 2 envs on the card to the CPU after one step from a
+     carried-over pressed state (gel, ball, reward, indentation, and the
+     tactile image under the bin rule); steps the textured id at 16 envs (3
+     steps) and checks that the filmed marker dots move under the press; and
+     the embedded dense contact surface (gel "low", surface
+     "extremely_high") at 64 envs, 3 steps, with K1 and K2 on its frame.
 
 The second-to-last line is a JSON object with a row per kernel and shape:
 its launches on the main path that runs it at that shape, its error against
@@ -79,6 +92,7 @@ call's time; then each phase's numbers. The last line is ``{"ok": true,
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -115,6 +129,12 @@ PRIVILEGED_ITERATIONS = 10
 OTHER_ENVS = 256
 SHADING_ENVS = 16
 COMPACT_CAPACITY = 16384
+UIPC_IDS = ("TacEx-Ball-Rolling-Tactile-RGB-Uipc-v0", "TacEx-Ball-Rolling-Uipc-Textured-v0")
+UIPC_STEPS = 5
+UIPC_TEXTURED_STEPS = 3
+UIPC_EMBED_ENVS = 64  # scripts/benchmarking/benchmark_embedded_gel.py
+UIPC_EMBED_STEPS = 3
+UIPC_PRESS = -0.02
 WARMUP_STEPS = 2
 STEPS = 10
 KERNEL_ATOL = 1e-5
@@ -365,7 +385,6 @@ def _sensor_frame(sensor, out):
 def sensor_phase(device) -> dict:
     """The default GelSight Mini sensor (320x240 Taxim + FOTS) on 256 envs:
     one update counted, its time, and 2 envs held to the CPU's."""
-    sys.path.insert(0, str(REPO / "tests"))
     from _torch_bins import NOISE_FLOOR, assert_bin_rule, bin_coords, lut_spread
     from tacex_tpu_torch.sensors.gelsight.sensor import GelSightSensor
     from tacex_tpu_torch.sensors.gelsight.sensor_cfg import gelsight_mini_cfg
@@ -807,14 +826,16 @@ def _factory_action(n: int, device) -> torch.Tensor:
     return action
 
 
-def _launch_count(fn) -> int:
-    """CUDA kernels that one call of ``fn`` launches (torch.profiler)."""
+def _launch_count(fn) -> tuple[int, float]:
+    """CUDA device activities (kernels, memsets, copies) of one call of
+    ``fn`` and their summed device time in ms (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(device), sum(e.time_range.elapsed_us() for e in device) / 1e3
 
 
 def factory_phase(device) -> dict:
@@ -852,12 +873,13 @@ def factory_phase(device) -> dict:
         shapes = {k: tuple(v.shape) for k, v in obs.items()}
         if shapes != {"proprio_obs": (n, 19), "vision_obs": (n, 32, 32, 6)}:
             raise AssertionError(f"{env_id}: obs shapes {shapes}")
-        kernels = _launch_count(lambda: env.step(state, action))
+        kernels, device_ms = _launch_count(lambda: env.step(state, action))
         log = {k: float(v) for k, v in info["log"].items()}
         print(f"factory: {env_id}, {n} envs, {FACTORY_STEPS} steps with no host sync: {step_ms:.3f} ms/step "
-              f"(host clock, synchronised), {kernels} CUDA kernels a step (torch.profiler), K1/K2 launches "
-              f"{launches}, peak memory {peak_gb:.3f} GB; log {log}")
-        out["steps"][env_id] = dict(step_ms=step_ms, kernels_per_step=kernels, launches=launches, peak_gb=peak_gb)
+              f"(host clock, synchronised), {kernels} CUDA kernels a step taking {device_ms:.3f} ms of device time "
+              f"(torch.profiler), K1/K2 launches {launches}, peak memory {peak_gb:.3f} GB; log {log}")
+        out["steps"][env_id] = dict(step_ms=step_ms, kernels_per_step=kernels, device_ms_per_step=device_ms,
+                                    launches=launches, peak_gb=peak_gb)
         if env_id == FACTORY_IDS[0]:
             out["launches"] = launches
             out["kernels"] = _factory_kernels(env, state)
@@ -1062,6 +1084,212 @@ def sac_phase(device) -> dict:
     return out
 
 
+def _uipc_action(n: int, device) -> torch.Tensor:
+    """A steady press of the gel onto the ball (-z): ~0.4 mm deeper a step."""
+    action = torch.zeros((n, 6), device=device)
+    action[:, 2] = UIPC_PRESS
+    return action
+
+
+def _gel_displacement(env, state) -> torch.Tensor:
+    """(N,) largest distance (m) of a gel vertex from its rest place at the
+    tool's pose: the gel's deformation, without its rigid motion."""
+    rest = env._gel_world_rest_state(state.base).x
+    return torch.linalg.vector_norm(state.gel.x - rest, dim=-1).amax(-1)
+
+
+def _uipc_run(env, steps: int) -> dict:
+    """``reset_all``, a warm-up step, then ``steps`` steps with no host sync
+    (sync-debug "error"), the launch counters reset just before them; then
+    the CUDA kernels of one more step (torch.profiler)."""
+    n = env.cfg.num_envs
+    action = _uipc_action(n, env.device)
+    state, obs = env.reset_all(env.init_state())
+    state, obs, *_ = env.step(state, action)
+    gc.collect()  # the peak below should count this env's tensors, not an earlier phase's garbage
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    try:
+        for _ in range(steps):
+            state, obs, reward, term, trunc, info = env.step(state, action)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / steps
+    launches = _read_counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches != {"deformation_pyramid": steps, "lut_shade": steps}:
+        raise AssertionError(f"uipc: kernel launches {launches} in {steps} steps, expected one each a step")
+    _check_finite("uipc", {"state": state, "obs": obs, "reward": reward, "info": info})
+    vh, vw, vc = env.cfg.vision_obs_shape
+    shapes = {k: tuple(v.shape) for k, v in obs.items()}
+    if shapes != {"proprio_obs": (n, 14), "vision_obs": (n, vh, vw, vc)}:
+        raise AssertionError(f"uipc: obs shapes {shapes}")
+    if tuple(info["marker_flow"].shape) != (n, 2, 128, 2):
+        raise AssertionError(f"uipc: marker flow {tuple(info['marker_flow'].shape)}")
+    contact = int((info["indentation_depth"] > 0).sum())
+    disp = _gel_displacement(env, state)
+    if contact < n or float(disp.min()) < 1e-4:
+        raise AssertionError(f"uipc: {contact} of {n} envs in contact, gel displacement {disp.tolist()}")
+    kernels, device_ms = _launch_count(lambda: env.step(state, action))
+    # the IPC solve alone (SoftBodyModel.step), at the step's scene and targets
+    from tacex_tpu_torch.core import maths
+
+    tool_pos, tool_quat = env._tool_pose(state.base.arm.q)
+    aim = maths.transform_points(env._gel_top_rest, tool_pos, tool_quat)
+    scene = env._scene(state.base.ball_pos, env._planes)
+    solve_ms = _host_ms(lambda: env.gel.step(state.gel, scene, aim), iters=2)
+    return dict(state=state, obs=obs, info=info, step_ms=step_ms, kernels_per_step=kernels,
+                device_ms_per_step=device_ms, solve_ms=solve_ms, launches=launches,
+                peak_gb=peak_gb, in_contact=contact, indentation_mm=[float(info["indentation_depth"].min()),
+                float(info["indentation_depth"].max())], gel_max_displacement_m=float(disp.max()))
+
+
+def _uipc_print(tag: str, env, r: dict, steps: int) -> None:
+    print(f"uipc: {tag}, {env.cfg.num_envs} envs, gel {env.gel_mesh.num_vertices} vertices / {len(env.gel_mesh.tets)} "
+          f"tets, {steps} steps with no host sync: {r['step_ms']:.3f} ms/step (host clock, synchronised; the IPC solve "
+          f"alone {r['solve_ms']:.3f} ms), "
+          f"{r['kernels_per_step']} CUDA kernels a step taking {r['device_ms_per_step']:.3f} ms of device time "
+          f"(torch.profiler), K1/K2 launches {r['launches']}, peak memory "
+          f"{r['peak_gb']:.3f} GB; {r['in_contact']} envs in contact, indentation {r['indentation_mm'][0]:.3f}-"
+          f"{r['indentation_mm'][1]:.3f} mm, gel max displacement {r['gel_max_displacement_m']:.3e} m")
+
+
+def _uipc_kernels(env, state) -> dict:
+    """K1 and K2 on the UIPC frame of ``state``: the depth of the deformed
+    gel's contact surface, resampled to the 32x24 sensor."""
+    tool_pos, tool_quat = env._tool_pose(state.base.arm.q)
+    depth = env.contact_surface(state.gel.x, tool_pos, tool_quat)[-1]
+    joined, mask, sigmas, idx, _ = _depth_frame(env.sensor, depth)
+    calib = env.sensor.calib
+    nb = calib.sensor_params.num_bins
+    n, h, w = joined.shape
+    entries = {
+        f"pyramid warp {n}x{h}x{w}": _pyramid_entry(f"{n}x{h}x{w}", joined, mask, sigmas, "warp"),
+        f"lut full table {n}x{h * w}": _lut_entry(f"{n}x{h * w}", idx, calib.features,
+                                                  calib.poly_lut.reshape(nb * nb, 18)),
+    }
+    _print_entries(entries)
+    return entries
+
+
+def _uipc_reference(device) -> dict:
+    """2 envs of the registered UIPC id on the card and on the CPU: pressed
+    on the card, carried over, one step on each. The gel and the ball are
+    held to the parity tests' tolerances (``tests/_torch_uipc.py``: the gel
+    within the drift of two f32 CG solves), and the tactile image of the
+    CPU's gel, card against CPU, under the bin rule."""
+    from _torch_bins import FINGER_NOISE_FLOOR, assert_bin_rule, bin_coords, lut_spread
+    from tacex_tpu_torch import envs
+    from tacex_tpu_torch.envs.ball_rolling.env import BallRollingEnvCfg
+
+    events = {**BallRollingEnvCfg().events_cfg, "enabled": False}
+    kw = dict(num_envs=2, action_noise=0.0, obs_noise_std=0.0, events_cfg=events)
+    gpu, cpu = envs.make(UIPC_IDS[0], device=device, **kw), envs.make(UIPC_IDS[0], device="cpu", **kw)
+    action = _uipc_action(2, device)
+    st_g, _ = gpu.reset_all(gpu.init_state())
+    for _ in range(2):
+        st_g, *_ = gpu.step(st_g, action)
+    st_c = _state_to(st_g, "cpu")
+    st_g, obs_g, rew_g, term_g, trunc_g, info_g = gpu.step(st_g, action)
+    st_c, obs_c, rew_c, term_c, trunc_c, info_c = cpu.step(st_c, action.cpu())
+    if bool((term_c | trunc_c).any()) or not torch.equal(term_g.cpu(), term_c):
+        raise AssertionError("uipc reference: an env finished")
+    # tests/_torch_uipc.py GEL_ATOL (m) and tests/test_torch_env.py's ATOL and
+    # TOL: the ball's spin relative to its size, its quaternion half a step of
+    # that. The indentation (mm) is the contact surface's depth, so it moves
+    # with the gel's vertices: up to 1e3 x the gel's tolerance
+    gel_atol, atol = 1.5e-5, 1e-5
+    ang_tol = 2e-3 * max(1.0, float(st_c.base.ball_ang.abs().max()))
+    diffs, limits = {}, {}
+    for name, a, b, limit in (
+        ("gel.x", st_g.gel.x, st_c.gel.x, gel_atol), ("gel.v", st_g.gel.v, st_c.gel.v, 60.0 * gel_atol),
+        ("ball_pos", st_g.base.ball_pos, st_c.base.ball_pos, atol),
+        ("ball_quat", st_g.base.ball_quat, st_c.base.ball_quat, atol + 0.5 / 60.0 * ang_tol),
+        ("ball_lin", st_g.base.ball_lin, st_c.base.ball_lin, atol),
+        ("ball_ang", st_g.base.ball_ang, st_c.base.ball_ang, ang_tol),
+        ("reward", rew_g, rew_c, atol),
+        ("indentation_mm", info_g["indentation_depth"], info_c["indentation_depth"], 1e3 * gel_atol),
+    ):
+        diffs[name], limits[name] = float((a.cpu() - b).abs().max()), limit
+    print("uipc reference (cuda vs cpu, 2 envs, one step from a carried-over pressed state): "
+          + ", ".join(f"{k} {v:.2e} (limit {limits[k]:.1e})" for k, v in diffs.items()))
+    bad = {k: v for k, v in diffs.items() if not v <= limits[k]}
+    if bad:
+        raise AssertionError(f"uipc reference: the card's step disagrees with the CPU's: {bad}")
+
+    tool_pos, tool_quat = cpu._tool_pose(st_c.base.arm.q)
+    depth_c = cpu.contact_surface(st_c.gel.x, tool_pos, tool_quat)[-1]
+    _, out_g = gpu.sensor.update(gpu.sensor.init_state(), depth_c.to(device))
+    _, out_c = cpu.sensor.update(cpu.sensor.init_state(), depth_c)
+    _, _, _, bins_g = _sensor_frame(gpu.sensor, out_g)
+    _, gm, gd, bins_c = _sensor_frame(cpu.sensor, out_c)
+    calib = cpu.sensor.calib
+    nb = calib.sensor_params.num_bins
+    bt, bc = [b.cpu().numpy() for b in bins_g], [b.numpy() for b in bins_c]
+    t_mag, t_dir = bin_coords(gm.numpy(), gd.numpy(), nb)
+    edge = np.minimum(np.abs(t_mag - np.round(t_mag)), np.abs(t_dir - np.round(t_dir)))
+    moved = ((bt[0] != bc[0]) | (bt[1] != bc[1])) & (np.tan(gm.numpy().astype(np.float64)) >= FINGER_NOISE_FLOOR)
+    worst_edge = float(edge[moved].max(initial=0.0))
+    held = assert_bin_rule(out_g["tactile_rgb"].cpu().numpy(), out_c["tactile_rgb"].numpy(), gm.numpy(), gd.numpy(),
+                           nb, lut_spread(calib.poly_lut.numpy(), calib.features.numpy(), nb), bins_t=bt, bins_j=bc,
+                           edge_bins=EDGE_BINS, noise_floor=FINGER_NOISE_FLOOR)
+    print(f"uipc reference: tactile_rgb of the CPU's gel, cuda vs cpu: {held:.4f} of pixels take the same LUT rows and "
+          f"agree to 1e-4; {int(moved.sum())} pixels above the noise floor take another row, the farthest "
+          f"{worst_edge:.2e} bins from an edge (margin {EDGE_BINS})")
+    return dict(diffs, tactile_held=held, worst_edge_bins=worst_edge)
+
+
+def uipc_phase(device) -> dict:
+    """The soft FEM gel pad: ``TacEx-Ball-Rolling-Tactile-RGB-Uipc-v0`` at its
+    registered 16 envs (UIPC_STEPS steps, K1 and K2 once a step, both held to
+    their plain versions on its frame), 2 envs held to the CPU, the textured
+    id at 16 envs (its filmed dots move under the press) and the embedded
+    dense contact surface at 64 envs."""
+    from tacex_tpu_torch import envs
+
+    out = {}
+    env = envs.make(UIPC_IDS[0], device=device)
+    r = _uipc_run(env, UIPC_STEPS)
+    _uipc_print(UIPC_IDS[0], env, r, UIPC_STEPS)
+    kernels = _uipc_kernels(env, r["state"])
+    out[UIPC_IDS[0]] = {k: v for k, v in r.items() if k not in ("state", "obs", "info")}
+    out["launches"] = r["launches"]
+    del env, r
+    out["reference"] = _uipc_reference(device)
+
+    env = envs.make(UIPC_IDS[1], device=device)
+    r = _uipc_run(env, UIPC_TEXTURED_STEPS)
+    _uipc_print(UIPC_IDS[1], env, r, UIPC_TEXTURED_STEPS)
+    state = r["state"]
+    tool_pos, tool_quat = env._tool_pose(state.base.arm.q)
+    film = env._film_texture_frame(env.contact_surface(state.gel.x, tool_pos, tool_quat)[3])
+    rest = env._gel_world_rest_state(state.base).x
+    film_rest = env._film_texture_frame(env.contact_surface(rest, tool_pos, tool_quat)[3])
+    moved = float(((film - film_rest).abs().amax(-1) > 0.05).float().mean())
+    dots = float((film < 0.3).float().mean())
+    print(f"uipc: {UIPC_IDS[1]}: filmed frame {tuple(film.shape)}, {dots:.4f} of texels on a dot, {moved:.4f} of "
+          "pixels changed by more than 0.05 against the rest gel at the same tool pose")
+    if not (bool(torch.isfinite(film).all()) and dots > 0.0 and moved > 0.0):
+        raise AssertionError("uipc textured: the filmed frame is not finite, shows no dots, or no dot moved")
+    out[UIPC_IDS[1]] = dict({k: v for k, v in r.items() if k not in ("state", "obs", "info")},
+                            film_dot_share=dots, film_moved_share=moved)
+    del env, r, state
+
+    env = envs.make(UIPC_IDS[0], num_envs=UIPC_EMBED_ENVS, gel_resolution="low", gel_embed_surface="extremely_high",
+                    device=device)
+    r = _uipc_run(env, UIPC_EMBED_STEPS)
+    _uipc_print(f"{UIPC_IDS[0]}, gel 'low' + embedded 'extremely_high' surface {env.embed.shape}", env, r,
+                UIPC_EMBED_STEPS)
+    kernels.update(_uipc_kernels(env, r["state"]))
+    out["embedded_64"] = {k: v for k, v in r.items() if k not in ("state", "obs", "info")}
+    out["kernels"] = kernels
+    return out
+
+
 def _state_to(state, device):
     """A copy of a port state on ``device``."""
     if dataclasses.is_dataclass(state):
@@ -1074,7 +1302,7 @@ def main() -> None:
         raise SystemExit("chip_smoke: no CUDA device")
     if not (REPO / "tacex_tpu_torch" / "csrc").is_dir():
         raise SystemExit(f"chip_smoke: {REPO} does not hold the tacex_tpu_torch package")
-    sys.path.insert(0, str(REPO))
+    sys.path[:0] = [str(REPO), str(REPO / "tests")]  # the port, and the bin rule of tests/_torch_bins.py
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1106,7 +1334,7 @@ def main() -> None:
     state, obs, *_ = env.step(state, _policy_action(policy, obs))
 
     sensor = sensor_phase(device)
-    kernels = kernel_phase(env, state, device, sensor["frame"], sensor["lut"])
+    kernels = kernel_phase(env, state, device, sensor.pop("frame"), sensor.pop("lut"))
     run = slice_phase(env, state, obs, policy)
     reference_phase(device)
     del env, state, obs, policy
@@ -1118,8 +1346,10 @@ def main() -> None:
     factory_train = factory_train_phase(device)
     pole = pole_phase(device)
     sac = sac_phase(device)
+    uipc = uipc_phase(device)
 
     kernels.update(factory.pop("kernels"))
+    kernels.update(uipc.pop("kernels"))
     sources = {
         "deformation_pyramid": ("tacex_tpu_torch/csrc/pyramid.cu", "tacex_tpu/ops/pallas_pyramid.py:61"),
         "lut_shade": ("tacex_tpu_torch/csrc/lut_shade.cu", "tacex_tpu/ops/pallas_lut.py:63"),
@@ -1133,6 +1363,10 @@ def main() -> None:
         ("lut_shade", "lut subtable 4096x768", "compact_render_320x240_16", shading["compact_launches"]),
         ("lut_shade", "lut full table 256x1024", "factory_step_128", factory["launches"]),
         ("lut_shade", "lut full table 256x76800", "sensor_320x240_256", sensor["launches"]),
+        ("deformation_pyramid", "pyramid warp 16x24x32", "uipc_step_16", uipc["launches"]),
+        ("lut_shade", "lut full table 16x768", "uipc_step_16", uipc["launches"]),
+        ("deformation_pyramid", "pyramid warp 64x24x32", "uipc_embedded_step_64", uipc["embedded_64"]["launches"]),
+        ("lut_shade", "lut full table 64x768", "uipc_embedded_step_64", uipc["embedded_64"]["launches"]),
     )
     report = {
         "kernels": [
@@ -1156,6 +1390,7 @@ def main() -> None:
         "factory_train": factory_train,
         "pole": pole,
         "sac": sac,
+        "uipc": {k: v for k, v in uipc.items() if k != "launches"},
     }
     print(json.dumps(report))
     card = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

@@ -57,6 +57,12 @@ def quat_apply_inverse(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return quat_apply(quat_conjugate(q), v)
 
 
+def transform_points(points: torch.Tensor, pos: torch.Tensor, quat: torch.Tensor) -> torch.Tensor:
+    """Apply the rigid transform ``pos`` (..., 3), ``quat`` (..., 4) to
+    (..., P, 3) points."""
+    return quat_apply(quat[..., None, :], points) + pos[..., None, :]
+
+
 def matrix_from_quat(q: torch.Tensor) -> torch.Tensor:
     w, x, y, z = q.unbind(-1)
     xx, yy, zz = x * x, y * y, z * z

@@ -1,7 +1,5 @@
-"""Ball-rolling task registration (the ids mirror the reference gym ids).
-
-The two ``Uipc`` ids of the JAX package run in the soft-body world, which
-the port does not have: they are not registered here."""
+"""Ball-rolling task registration (the ids mirror the reference gym ids):
+the six rigid tasks and the two whose gel pad is a soft FEM body."""
 
 from ..base import register
 from .env import BallRollingEnv, BallRollingEnvCfg
@@ -41,3 +39,16 @@ register(
     BallRollingEnv,
     lambda: _cfg(obs_mode="privileged", with_markers=False, action_space=5, reset_mode="ik_contact"),
 )
+
+
+from .env_uipc import BallRollingUipcEnv, BallRollingUipcEnvCfg  # noqa: E402
+
+
+def _uipc_cfg(**kw) -> BallRollingUipcEnvCfg:
+    # the UIPC cfg subclass, so that envs.make(..., gel_resolution=...,
+    # gel_embed_surface=...) reaches the gel's own fields
+    return BallRollingUipcEnvCfg().replace(**{"num_envs": 16, "obs_mode": "rgb", "with_markers": False, **kw})
+
+
+register("TacEx-Ball-Rolling-Tactile-RGB-Uipc-v0", BallRollingUipcEnv, _uipc_cfg)
+register("TacEx-Ball-Rolling-Uipc-Textured-v0", BallRollingUipcEnv, lambda: _uipc_cfg(obs_mode="camera_rgb"))

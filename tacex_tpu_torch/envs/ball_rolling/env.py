@@ -159,13 +159,16 @@ class BallRollingState:
 
 class BallRollingEnv(DirectRLEnv):
     cfg: BallRollingEnvCfg
+    obs_modes = OBS_MODES
 
     def __init__(self, cfg: BallRollingEnvCfg | None = None, device=DEFAULT_DEVICE):
         super().__init__(cfg or BallRollingEnvCfg(), device=device)
         c = self.cfg
         dev = self.device
-        if c.obs_mode not in OBS_MODES:
-            raise ValueError(f"obs_mode {c.obs_mode!r} is not one of {OBS_MODES} (camera_rgb belongs to the UIPC env)")
+        if c.obs_mode not in self.obs_modes:
+            raise ValueError(
+                f"obs_mode {c.obs_mode!r} is not one of {self.obs_modes} (camera_rgb belongs to the UIPC env)"
+            )
         if c.reset_mode not in RESET_MODES:
             raise ValueError(f"reset_mode {c.reset_mode!r} is not one of {RESET_MODES}")
         res = tuple(c.camera_resolution)

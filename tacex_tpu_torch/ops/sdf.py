@@ -37,41 +37,41 @@ def _clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
 
 
 def sdf_spheres(p: torch.Tensor, spheres: torch.Tensor) -> torch.Tensor:
-    """(P, 3) points vs (S, 4) spheres -> (P, S) signed distances."""
-    c, r = spheres[:, :3], spheres[:, 3]
-    d = _safe_norm(p[:, None, :] - c[None, :, :]) - r[None, :]
-    return torch.where(r[None, :] > 0, d, BIG)
+    """(..., P, 3) points vs (..., S, 4) spheres -> (..., P, S) signed distances."""
+    c, r = spheres[..., :3], spheres[..., 3]
+    d = _safe_norm(p[..., :, None, :] - c[..., None, :, :]) - r[..., None, :]
+    return torch.where(r[..., None, :] > 0, d, BIG)
 
 
 def sdf_planes(p: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
-    """(P, 3) vs (L, 4) planes (n, d): signed distance n.x - d."""
-    n, off = planes[:, :3], planes[:, 3]
-    d = p @ n.T - off[None, :]
+    """(..., P, 3) vs (..., L, 4) planes (n, d): signed distance n.x - d."""
+    n, off = planes[..., :3], planes[..., 3]
+    d = p @ n.transpose(-1, -2) - off[..., None, :]
     enabled = (n * n).sum(-1) > 0.5
-    return torch.where(enabled[None, :], d, BIG)
+    return torch.where(enabled[..., None, :], d, BIG)
 
 
 def sdf_boxes(p: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
-    """(P, 3) vs (B, 10) oriented boxes -> (P, B) exact signed distances."""
-    c, q, h = boxes[:, :3], boxes[:, 3:7], boxes[:, 7:10]
-    local = maths.quat_apply_inverse(q[None, :, :], p[:, None, :] - c[None, :, :])  # (P, B, 3)
-    a = local.abs() - h[None, :, :]
+    """(..., P, 3) vs (..., B, 10) oriented boxes -> (..., P, B) exact signed distances."""
+    c, q, h = boxes[..., :3], boxes[..., 3:7], boxes[..., 7:10]
+    local = maths.quat_apply_inverse(q[..., None, :, :], p[..., :, None, :] - c[..., None, :, :])  # (..., P, B, 3)
+    a = local.abs() - h[..., None, :, :]
     zero = a.new_zeros(())
     outside = _safe_norm(torch.maximum(a, zero))
     inside = torch.minimum(a.amax(-1), zero)
-    return torch.where(boxes[None, :, 7] > 0, outside + inside, BIG)
+    return torch.where(boxes[..., None, :, 7] > 0, outside + inside, BIG)
 
 
 def sdf_capsules(p: torch.Tensor, caps: torch.Tensor) -> torch.Tensor:
-    """(P, 3) vs (C, 8) capsules -> (P, C)."""
-    a, b, r, en = caps[:, 0:3], caps[:, 3:6], caps[:, 6], caps[:, 7]
+    """(..., P, 3) vs (..., C, 8) capsules -> (..., P, C)."""
+    a, b, r, en = caps[..., 0:3], caps[..., 3:6], caps[..., 6], caps[..., 7]
     ab = b - a
     ab2 = torch.maximum((ab * ab).sum(-1), ab.new_full((), 1e-12))
-    t = ((p[:, None, :] - a[None, :, :]) * ab[None]).sum(-1) / ab2[None, :]
+    t = ((p[..., :, None, :] - a[..., None, :, :]) * ab[..., None, :, :]).sum(-1) / ab2[..., None, :]
     t = _clip(t, 0.0, 1.0)
-    closest = a[None, :, :] + t[..., None] * ab[None, :, :]
-    d = _safe_norm(p[:, None, :] - closest) - r[None, :]
-    return torch.where(en[None, :] > 0.5, d, BIG)
+    closest = a[..., None, :, :] + t[..., None] * ab[..., None, :, :]
+    d = _safe_norm(p[..., :, None, :] - closest) - r[..., None, :]
+    return torch.where(en[..., None, :] > 0.5, d, BIG)
 
 
 def sdf_threads(p: torch.Tensor, threads: torch.Tensor) -> torch.Tensor:
@@ -156,14 +156,16 @@ def sdf_gear(p: torch.Tensor, gears: torch.Tensor) -> torch.Tensor:
 
 
 def scene_sdf(
-    p: torch.Tensor,  # (P, 3)
-    spheres: torch.Tensor,
+    p: torch.Tensor,  # (..., P, 3)
+    spheres: torch.Tensor,  # (..., S, 4)
     boxes: torch.Tensor,
     capsules: torch.Tensor,
     planes: torch.Tensor,
-    threads: torch.Tensor | None = None,
+    threads: torch.Tensor | None = None,  # (T, 12); unbatched only
 ) -> torch.Tensor:
-    """(P,) min signed distance of each point to the primitive soup."""
+    """(..., P) min signed distance of each point to the primitive soup. The
+    analytic primitives take leading batch axes (one soup an env); the
+    threads do not."""
     parts = [sdf_spheres(p, spheres), sdf_boxes(p, boxes), sdf_capsules(p, capsules), sdf_planes(p, planes)]
     if threads is not None:
         parts.append(sdf_threads(p, threads))

@@ -8,6 +8,7 @@ imports neither jax nor the JAX package.
 import inspect
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -15,12 +16,17 @@ from tacex_tpu_torch import envs
 from tacex_tpu_torch.core import device as tdevice
 from tacex_tpu_torch.envs.ball_rolling.convert import state_from_numpy
 from tacex_tpu_torch.envs.ball_rolling.env import BallRollingEnv
+from tacex_tpu_torch.envs.ball_rolling.env_uipc import BallRollingUipcEnv
 from tacex_tpu_torch.envs.base import DirectRLEnv
 from tacex_tpu_torch.envs.convert import state_from_numpy as any_state_from_numpy
 from tacex_tpu_torch.envs.factory.env import FactoryEnv
 from tacex_tpu_torch.envs.pole_balancing.env import PoleBalancingEnv
 from tacex_tpu_torch.rl import PPO, SAC
+from tacex_tpu_torch.physics.soft.embed import EmbeddedFaceGrid
+from tacex_tpu_torch.physics.soft.ipc import RigidSdfScene, SoftBodyModel, SoftBodyState
+from tacex_tpu_torch.physics.soft.mesh import box_tet_mesh
 from tacex_tpu_torch.rl.networks import ActorCritic, VisionEncoder
+from tacex_tpu_torch.sensors.gelsight.fem import FemMarkerFlow, ManiSkillSimulatorCfg
 from tacex_tpu_torch.sensors.gelsight.sensor import GelSightSensor
 from tacex_tpu_torch.sensors.gelsight.sensor_cfg import gelsight_mini_cfg
 
@@ -37,7 +43,14 @@ ENTRY_POINTS = {
     "FactoryEnv": FactoryEnv,
     "PoleBalancingEnv": PoleBalancingEnv,
     "envs.convert.state_from_numpy": any_state_from_numpy,
+    "BallRollingUipcEnv": BallRollingUipcEnv,
+    "SoftBodyModel": SoftBodyModel,
+    "SoftBodyState.init": SoftBodyState.init,
+    "RigidSdfScene.empty": RigidSdfScene.empty,
+    "EmbeddedFaceGrid": EmbeddedFaceGrid,
+    "FemMarkerFlow": FemMarkerFlow,
 }
+UIPC_IDS = ["TacEx-Ball-Rolling-Tactile-RGB-Uipc-v0", "TacEx-Ball-Rolling-Uipc-Textured-v0"]
 OTHER_IDS = [
     "TacEx-Factory-PegInsert-Direct-v0",
     "TacEx-Factory-GearMesh-Direct-v0",
@@ -88,6 +101,39 @@ def test_factory_and_pole_ids_need_the_card_unless_asked(no_card, env_id):
 def test_other_entry_points_without_a_card_raise(no_card, build):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build()
+
+
+@pytest.mark.parametrize("env_id", UIPC_IDS)
+def test_uipc_ids_need_the_card_unless_asked(no_card, env_id):
+    """Both UIPC ball-rolling ids take the card at their registered 16 envs
+    and raise without one; on request they run on the CPU, the gel solver
+    and the marker flow with them."""
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        envs.make(env_id)
+    env = envs.make(env_id, num_envs=2, device="cpu")
+    assert env.device.type == "cpu" and env.gel.device.type == "cpu"
+    assert env.marker_flow.device.type == "cpu" and env.gel.masses.device.type == "cpu"
+    assert envs.base._REGISTRY[env_id][1]().num_envs == 16
+
+
+def test_soft_body_parts_without_a_card_raise(no_card):
+    mesh = box_tet_mesh((0.01, 0.01, 0.004), (2, 2, 1))
+    rest = mesh.points[mesh.surface_verts]
+    tris = np.searchsorted(mesh.surface_verts, mesh.surface_tris)  # surface_verts is sorted
+    for build in (lambda: SoftBodyModel(mesh), lambda: SoftBodyState.init(2, mesh.points),
+                  lambda: RigidSdfScene.empty(2), lambda: FemMarkerFlow(ManiSkillSimulatorCfg(), rest, tris)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+
+
+def test_experiment_harness_defaults_to_the_card(no_card):
+    import runpy
+
+    harness = runpy.run_path(str(Path(__file__).resolve().parents[1] / "scripts" / "benchmarking"
+                                 / "run_ball_rolling_experiment_torch.py"))
+    assert inspect.signature(harness["run"]).parameters["device"].default == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        harness["main"](["--env", "uipc", "--num_envs", "2", "--steps", "1"])
 
 
 def test_trainer_and_launcher_run_where_the_env_runs(no_card):

@@ -39,7 +39,11 @@ def test_all_six_rigid_ids_are_registered():
     from tacex_tpu.envs.base import _REGISTRY as registry_j
     from tacex_tpu_torch.envs.base import _REGISTRY as registry_t
 
-    assert sorted(k for k in registry_t if k.startswith("TacEx-Ball-Rolling-")) == sorted(RIGID_IDS)
+    # every ball-rolling id of the JAX package is registered; the six rigid
+    # ones are those without the soft (Uipc) gel pad
+    ball_t = sorted(k for k in registry_t if k.startswith("TacEx-Ball-Rolling-"))
+    assert ball_t == sorted(k for k in registry_j if k.startswith("TacEx-Ball-Rolling-"))
+    assert [k for k in ball_t if "Uipc" not in k] == sorted(RIGID_IDS)
     for env_id in RIGID_IDS:
         cfg_t, cfg_j = registry_t[env_id][1](), registry_j[env_id][1]()
         for name in ("obs_mode", "reset_mode", "reset_ik_height", "with_markers", "action_space", "vision_obs_shape"):

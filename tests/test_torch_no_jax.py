@@ -51,6 +51,14 @@ SLICE_MODULES = [
     "tacex_tpu_torch.rl.sac",
     "tacex_tpu_torch.rl.agents",
     "tacex_tpu_torch.rl",
+    "tacex_tpu_torch.physics.soft.mesh",
+    "tacex_tpu_torch.physics.soft.fem",
+    "tacex_tpu_torch.physics.soft.ipc",
+    "tacex_tpu_torch.physics.soft.embed",
+    "tacex_tpu_torch.physics.soft",
+    "tacex_tpu_torch.sensors.gelsight.fem.marker_flow",
+    "tacex_tpu_torch.sensors.gelsight.fem",
+    "tacex_tpu_torch.envs.ball_rolling.env_uipc",
 ]
 
 
@@ -61,7 +69,8 @@ def test_import_loads_no_jax():
         "    importlib.import_module(m)\n"
         "from tacex_tpu_torch import envs\n"
         "for env_id in ('TacEx-Ball-Rolling-Taxim-Fots-v0', 'TacEx-Factory-PegInsert-Direct-v0', "
-        "'TacEx-Pole-Balancing-Base-v0'):\n"
+        "'TacEx-Pole-Balancing-Base-v0', 'TacEx-Ball-Rolling-Tactile-RGB-Uipc-v0', "
+        "'TacEx-Ball-Rolling-Uipc-Textured-v0'):\n"
         "    envs.make(env_id, num_envs=2, device='cpu')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tacex_tpu'))\n"
         "assert not bad, bad\n"
@@ -91,6 +100,28 @@ def test_train_script_loads_no_jax(tmp_path):
     assert {"steps_per_sec", "loss", "reward_per_step", "lr", "full_reward"} <= set(lines[0])
     assert sorted(p.name for p in tmp_path.iterdir()) == ["ckpt_0.pt", "ckpt_1.pt", "config.json", "metrics.jsonl"]
     assert len((tmp_path / "metrics.jsonl").read_text().splitlines()) == 2
+
+
+def test_experiment_harness_loads_no_jax(tmp_path):
+    """``scripts/benchmarking/run_ball_rolling_experiment_torch.py`` runs the
+    UIPC env for two steps on the CPU, writes its report with the physics /
+    tactile split, and loads neither jax nor the JAX package."""
+    out_file = tmp_path / "report.json"
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['run_ball_rolling_experiment_torch.py', '--env', 'uipc', '--num_envs', '2', '--steps', '2', "
+        f"'--device', 'cpu', '--out', {str(out_file)!r}]\n"
+        "runpy.run_path('scripts/benchmarking/run_ball_rolling_experiment_torch.py', run_name='__main__')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'tacex_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    report = json.loads(out_file.read_text())
+    assert report["env_id"] == "TacEx-Ball-Rolling-Tactile-RGB-Uipc-v0" and report["total_frames"] == 4
+    # the two timings are separate runs of the same physics: on a CPU either may be the longer
+    assert report["avg_ms_per_step"] > 0.0 and report["avg_physics_ms_per_step"] > 0.0
+    assert report["avg_tactile_ms_per_step"] >= 0.0 and report["system"]["device"] == "cpu"
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
