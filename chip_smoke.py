@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one NVIDIA GPU: the flagship env step,
 PPO training on it, the other ball-rolling tasks, every shading path, the
-Factory tasks, pole balancing, SAC and the soft FEM gel pad of the UIPC
-ball-rolling tasks.
+Factory tasks, pole balancing, SAC, the soft FEM gel pad of the UIPC
+ball-rolling tasks, and the coupled FEM+ABD world of the Grasp-Lift and
+Factory-UIPC tasks.
 
     python3 chip_smoke.py
 
@@ -62,8 +63,8 @@ package beside this file; it imports nothing of JAX. In order it:
      PegInsert step on the card to the CPU from the same state
      (``tests/test_torch_factory.py``'s tolerances);
  12. trains PPO one iteration on PegInsert at 128 envs under its tuned
-     config (rollouts 128, 4 epochs x 32 minibatches) on the (32, 32, 6)
-     finger images, with the rollout/update split;
+     config (4 epochs x 32 minibatches), cut to 32 rollout steps, on
+     the (32, 32, 6) finger images, with the rollout/update split;
  13. resets and steps pole balancing at 1024 envs under sync-debug "error";
  14. trains SAC on the privileged task at 512 envs under the config of
      ``logs/sac_privileged_r05`` (one train step crosses the warm-up, five
@@ -80,7 +81,26 @@ package beside this file; it imports nothing of JAX. In order it:
      tactile image under the bin rule); steps the textured id at 16 envs (3
      steps) and checks that the filmed marker dots move under the press; and
      the embedded dense contact surface (gel "low", surface
-     "extremely_high") at 64 envs, 3 steps, with K1 and K2 on its frame.
+     "extremely_high") at 64 envs, 3 steps, with K1 and K2 on its frame;
+ 16. (after step 4) the sensor at the calibration's own 640x480 frame on 4
+     envs: one update counted, K1 through its global-memory design (no
+     cluster of 8 CTAs holds the 117-tap first level's halo), held to its
+     plain version and timed ("pyramid global 480x640");
+ 17. the coupled FEM+ABD world: ``TacEx-Grasp-Lift-Uipc-Tactile-v0`` at its
+     registered 16 envs from a pressed start (each pad 0.6 mm toward the
+     cube): a warm step, 3 steps under sync-debug "error" with K1 and K2
+     launched once a step on the 2N = 32 pad images of 32x32; prints ms a
+     step, torch.profiler's device activities and device time of one step,
+     one coupled solve alone and peak memory; holds K1 (warp design,
+     (32, 32, 32)) and K2 ((32, 1024), full table, beside ``embedding_bag``)
+     to their plain versions; holds 2 envs on the card to the CPU after one
+     step from a carried-over pressed state at the parity tests' 2 Newton x
+     8 CG (gel, cube q, reward, grip, and the tactile image of the CPU's gel
+     under the bin rule; at the registered iterations it prints how far a
+     2e-9 m jolt of the gel moves the CPU's own step); the scripted
+     squeeze of ``-Uipc-v0`` (action [1, 0], 5 steps: the cube must stay
+     above -3 mm); and 2 steps each of ``-Uipc-Depth-v0`` and both
+     Factory-UIPC ids under sync-debug "error".
 
 The second-to-last line is a JSON object with a row per kernel and shape:
 its launches on the main path that runs it at that shape, its error against
@@ -119,6 +139,7 @@ FACTORY_IDS = (
     "TacEx-Factory-NutThread-Direct-v0",
 )
 FACTORY_STEPS = 5
+FACTORY_TRAIN_ROLLOUTS = 32
 POLE_ID = "TacEx-Pole-Balancing-Base-v0"
 POLE_STEPS = 5
 SAC_PRIVILEGED_ENVS = 512  # logs/sac_privileged_r05/config.json
@@ -135,6 +156,16 @@ UIPC_TEXTURED_STEPS = 3
 UIPC_EMBED_ENVS = 64  # scripts/benchmarking/benchmark_embedded_gel.py
 UIPC_EMBED_STEPS = 3
 UIPC_PRESS = -0.02
+GRASP_IDS = ("TacEx-Grasp-Lift-Uipc-Tactile-v0", "TacEx-Grasp-Lift-Uipc-v0", "TacEx-Grasp-Lift-Uipc-Depth-v0")
+FACTORY_UIPC_IDS = ("TacEx-Factory-PegInsert-Uipc-v0", "TacEx-Factory-PegInsert-Uipc-Depth-v0")
+COUPLED_PRESS = 6e-4
+# the card-against-CPU check's iterations: the parity tests' (tests/_torch_coupled.py)
+REF_NEWTON_ITERS = 2
+REF_CG_ITERS = 8
+COUPLED_STEPS = 3
+COUPLED_OTHER_STEPS = 2
+SQUEEZE_STEPS = 5
+CALIB_ENVS = 4
 WARMUP_STEPS = 2
 STEPS = 10
 KERNEL_ATOL = 1e-5
@@ -257,7 +288,7 @@ def _compare(name, out, ref) -> float:
 def _pyramid_entry(label, joined, mask, sigmas, design) -> dict:
     """K1 held to its plain version and timed on (joined, mask, sigmas),
     after checking which design the kernel takes for the shape (0 = a warp
-    per image, else the cluster's CTAs)."""
+    per image, 1..8 the cluster's CTAs, 9 the global-memory design)."""
     from tacex_tpu_torch.ops import _build
     from tacex_tpu_torch.ops import pyramid as K1
 
@@ -266,7 +297,8 @@ def _pyramid_entry(label, joined, mask, sigmas, design) -> dict:
     plan = _build.load_library().tacex_deformation_pyramid_plan(
         h, w, taps.ctypes.data, ky.ctypes.data, kx.ctypes.data, len(ky)
     )
-    if (plan == 0) != (design == "warp"):
+    expected = {"warp": plan == 0, "global": plan == K1.GLOBAL_DESIGN, "cluster": 1 <= plan <= 8}[design]
+    if not expected:
         raise AssertionError(f"the pyramid takes design {plan} at {h}x{w}, expected the {design} design")
     err = _compare(f"deformation_pyramid[{label}]", K1.deformation_pyramid(joined, mask, sigmas),
                    K1.deformation_pyramid_plain(joined, mask, sigmas))
@@ -445,6 +477,42 @@ def sensor_phase(device) -> dict:
     lut = ((idx_mag * nb + idx_dir).reshape(SENSOR_ENVS, -1).contiguous(), sensor.calib.features,
            sensor.calib.poly_lut.reshape(nb * nb, 18))
     return dict(launches=launches, update_ms=update_ms, frame=frame, lut=lut, worst_edge_bins=worst_edge)
+
+
+def calib_frame_phase(device) -> dict:
+    """The sensor at the calibration's own 640x480 frame on CALIB_ENVS envs
+    (the 320x240 press resampled): one update counted, K1 taking it through
+    its global-memory design (no cluster holds the 117-tap first level's
+    halo), and K1 held to its plain version on the frame."""
+    from tacex_tpu_torch.sensors.gelsight.sensor import GelSightSensor
+    from tacex_tpu_torch.sensors.gelsight.sensor_cfg import gelsight_mini_cfg
+
+    sensor = GelSightSensor(gelsight_mini_cfg(camera_resolution=(640, 480), tactile_img_res=(640, 480)),
+                            num_envs=CALIB_ENVS, device=device)
+    depth = torch.nn.functional.interpolate(_press_depth(CALIB_ENVS, device)[:, None], size=(480, 640),
+                                            mode="bilinear", align_corners=False)[:, 0].contiguous()
+    state, out = sensor.update(sensor.init_state(), depth)
+    torch.cuda.synchronize()
+    _reset_counters()
+    state, out = sensor.update(state, depth)
+    launches = _read_counters()
+    torch.cuda.synchronize()
+    if launches["deformation_pyramid"] != 1:
+        raise AssertionError(f"the 640x480 sensor update launched K1 {launches['deformation_pyramid']} times, not once")
+    rgb = out["tactile_rgb"]
+    if tuple(rgb.shape) != (CALIB_ENVS, 480, 640, 3) or not bool(torch.isfinite(rgb).all()):
+        raise AssertionError(f"tactile_rgb {tuple(rgb.shape)} is not a finite ({CALIB_ENVS}, 480, 640, 3) image")
+    t0 = time.perf_counter()
+    for _ in range(5):
+        sensor.update(state, depth)
+    torch.cuda.synchronize()
+    update_ms = 1e3 * (time.perf_counter() - t0) / 5
+    frame, _, _, _ = _sensor_frame(sensor, out)
+    entries = {"pyramid global 480x640": _pyramid_entry(f"{CALIB_ENVS}x480x640", *frame, "global")}
+    print(f"calibration frame: GelSight Mini at 640x480, {CALIB_ENVS} envs: {update_ms:.3f} ms per update "
+          f"(host clock over 5, synchronised), launches {launches}")
+    _print_entries(entries)
+    return dict(launches=launches, update_ms=update_ms, kernels=entries)
 
 
 def _policy_action(policy, obs):
@@ -962,14 +1030,15 @@ def _factory_reference(env, state, action) -> dict:
 
 def factory_train_phase(device) -> dict:
     """One PPO iteration on PegInsert at 128 envs under its tuned config
-    (rollouts 128, 4 epochs x 32 minibatches), on the (32, 32, 6) finger
+    (4 epochs x 32 minibatches) cut to FACTORY_TRAIN_ROLLOUTS rollout steps
+    (its 128 took ~108 s of the script's budget), on the (32, 32, 6) finger
     images: K1 and K2 launch once per rollout step."""
     from tacex_tpu_torch import envs
     from tacex_tpu_torch.rl import PPO
     from tacex_tpu_torch.rl.agents import agent_cfg_for
 
     env_id = FACTORY_IDS[0]
-    cfg = agent_cfg_for(env_id, "ppo")
+    cfg = agent_cfg_for(env_id, "ppo").replace(rollouts=FACTORY_TRAIN_ROLLOUTS)
     env = envs.make(env_id, device=device)
     ppo = PPO(env, cfg)
     ppo.init(0)
@@ -1290,6 +1359,237 @@ def uipc_phase(device) -> dict:
     return out
 
 
+def _coupled_pressed(env, state):
+    """The pressed start of the coupled parity tests (``tests/_torch_coupled.py``):
+    each pad moved 0.6 mm toward the free body (0.4 mm from its faces, inside
+    the 1 mm barrier reach), the squeeze set to match, the body at a fixed
+    small offset from the gripper's centre."""
+    n = env.cfg.num_envs
+    grasp = hasattr(state, "cube")
+    body = state.cube if grasp else state.peg
+    xy = torch.tensor([2e-4, -1e-4], device=env.device).expand(n, 2) + (0.0 if grasp else state.mount[:, :2])
+    q = torch.cat([xy[:, None, :], body.q[..., 2:]], -1)
+    sgn = torch.sign(env.rig.rest_points[:, 0])
+    x = state.gel.x - COUPLED_PRESS * torch.stack([sgn, torch.zeros_like(sgn), torch.zeros_like(sgn)], -1)
+    body = dataclasses.replace(body, q=q)
+    state = dataclasses.replace(state, gel=dataclasses.replace(state.gel, x=x),
+                                squeeze=torch.full((n,), COUPLED_PRESS, device=env.device))
+    return dataclasses.replace(state, **({"cube": body} if grasp else {"peg": body}))
+
+
+def _coupled_action(env) -> torch.Tensor:
+    """Squeeze (Grasp-Lift: [1, 0.3], a slow lift; Factory-UIPC: down 0.3
+    and squeeze)."""
+    n, a = env.cfg.num_envs, env.cfg.action_space
+    action = torch.zeros((n, a), device=env.device)
+    if a == 2:
+        action[:, 0], action[:, 1] = 1.0, 0.3
+    else:
+        action[:, 2], action[:, 3] = -0.3, 1.0
+    return action
+
+
+def _coupled_frame(env, state):
+    """K1 and K2's inputs on the tactile Grasp-Lift frame of ``state``: the
+    2N pad-major 32x32 images."""
+    depth = env._pad_sensor_depth(env._pad_compression(state.gel.x, state.squeeze))
+    return _depth_frame(env.sensor, depth)
+
+
+def _coupled_steps(env, state, action, steps: int, guarded: bool):
+    """``steps`` steps, the launch counters reset just before them; under
+    sync-debug "error" when ``guarded``. Returns (state, outputs, ms a step,
+    launches)."""
+    torch.cuda.synchronize()
+    _reset_counters()
+    if guarded:
+        torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    try:
+        for _ in range(steps):
+            state, obs, reward, term, trunc, info = env.step(state, action)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / steps
+    return state, (obs, reward, term, trunc, info), step_ms, _read_counters()
+
+
+def _coupled_reference(device) -> dict:
+    """2 envs of the tactile Grasp-Lift id on the card and on the CPU at the
+    parity tests' iterations (``tests/_torch_coupled.py``: 2 Newton x 8 CG)
+    and velocity_tol = 0 (the stop is a float-noise decision): pressed and
+    stepped once on the card, carried over, one step on each. The gel and
+    the cube's q are held to the parity tests' tolerances, the reward
+    through its slopes, and the tactile image of the CPU's gel, card against
+    CPU, under the bin rule. At the registered 6 Newton x 24 CG the solve
+    is too sensitive to its inputs' rounding for that: a 2e-9 m jolt of the
+    gel (two f32 steps) moves the CPU's own step, which this prints."""
+    from _torch_bins import FINGER_NOISE_FLOOR, assert_bin_rule, lut_spread
+    from tacex_tpu_torch import envs
+
+    kw = dict(num_envs=2, stagger_initial_episodes=False)
+    iters = dict(newton_iters=REF_NEWTON_ITERS, cg_iters=REF_CG_ITERS)
+    gpu, cpu = envs.make(GRASP_IDS[0], device=device, **kw, **iters), envs.make(GRASP_IDS[0], device="cpu", **kw, **iters)
+    full = envs.make(GRASP_IDS[0], device="cpu", **kw)
+    for e in (gpu, cpu, full):
+        e.world.fem.cfg.velocity_tol = 0.0
+    action = _coupled_action(gpu)
+    st_g, _ = gpu.reset_all(gpu.init_state())
+    st_g, *_ = gpu.step(_coupled_pressed(gpu, st_g), action)
+    st_c = _state_to(st_g, "cpu")
+    jolted = dataclasses.replace(st_c, gel=dataclasses.replace(st_c.gel, x=st_c.gel.x + 2e-9))
+    t0 = time.perf_counter()
+    a_full = full.step(st_c, action.cpu())[0]
+    full_ms = 1e3 * (time.perf_counter() - t0)
+    b_full = full.step(jolted, action.cpu())[0]
+    jolt = {name: float((a - b).abs().max()) for name, a, b in (
+        ("gel.x", a_full.gel.x, b_full.gel.x), ("cube.t", a_full.cube.q[..., :3], b_full.cube.q[..., :3]),
+        ("cube.A", a_full.cube.q[..., 3:], b_full.cube.q[..., 3:]))}
+    print(f"coupled reference: at the registered {full.cfg.newton_iters} Newton x {full.cfg.cg_iters} CG (the CPU "
+          f"step {full_ms:.0f} ms), a 2e-9 m jolt of the gel moves the CPU's step by "
+          + ", ".join(f"{k} {v:.2e}" for k, v in jolt.items()))
+
+    st_g, obs_g, rew_g, term_g, trunc_g, info_g = gpu.step(st_g, action)
+    st_c, obs_c, rew_c, term_c, trunc_c, info_c = cpu.step(st_c, action.cpu())
+    if bool((term_c | trunc_c).any()) or not torch.equal(term_g.cpu(), term_c):
+        raise AssertionError("coupled reference: an env finished")
+    c = cpu.cfg
+    gel_atol = q_atol = 1.5e-5
+    rew_atol = c.w_grip / c.grip_target_mm * 1e3 * gel_atol + c.w_lift / c.lift_target * q_atol + 1e-6
+    diffs, limits = {}, {}
+    for name, a, b, limit in (
+        ("gel.x", st_g.gel.x, st_c.gel.x, gel_atol), ("gel.v", st_g.gel.v, st_c.gel.v, gel_atol / c.sim_dt),
+        ("cube.q", st_g.cube.q, st_c.cube.q, q_atol), ("cube.qd", st_g.cube.qd, st_c.cube.qd, q_atol / c.sim_dt),
+        ("reward", rew_g, rew_c, rew_atol), ("grip_mm", info_g["grip"], info_c["grip"], 1e3 * gel_atol),
+    ):
+        diffs[name], limits[name] = float((a.cpu() - b).abs().max()), limit
+    print(f"coupled reference (cuda vs cpu, 2 envs at {REF_NEWTON_ITERS} Newton x {REF_CG_ITERS} CG, one step from a "
+          "carried-over pressed state): " + ", ".join(f"{k} {v:.2e} (limit {limits[k]:.1e})" for k, v in diffs.items()))
+    bad = {k: v for k, v in diffs.items() if not v <= limits[k]}
+    if bad:
+        raise AssertionError(f"coupled reference: the card's step disagrees with the CPU's: {bad}")
+    if not bool((info_c["grip"] > 0.05).all()):
+        raise AssertionError(f"coupled reference: the pads do not press the cube: grip {info_c['grip'].tolist()}")
+
+    depth_c = cpu._pad_sensor_depth(cpu._pad_compression(st_c.gel.x, st_c.squeeze))
+    _, out_g = gpu.sensor.update(gpu.sensor.init_state(), depth_c.to(device))
+    _, out_c = cpu.sensor.update(cpu.sensor.init_state(), depth_c)
+    _, _, _, bins_g = _sensor_frame(gpu.sensor, out_g)
+    _, gm, gd, bins_c = _sensor_frame(cpu.sensor, out_c)
+    calib = cpu.sensor.calib
+    nb = calib.sensor_params.num_bins
+    bt, bc = [b.cpu().numpy() for b in bins_g], [b.numpy() for b in bins_c]
+    held = assert_bin_rule(out_g["tactile_rgb"].cpu().numpy(), out_c["tactile_rgb"].numpy(), gm.numpy(), gd.numpy(),
+                           nb, lut_spread(calib.poly_lut.numpy(), calib.features.numpy(), nb), bins_t=bt, bins_j=bc,
+                           edge_bins=EDGE_BINS, noise_floor=FINGER_NOISE_FLOOR)
+    marked = float((np.tan(gm.numpy().astype(np.float64)) > 1e-2).mean())
+    print(f"coupled reference: tactile_rgb of the CPU's gel (2N = 4 pad images of 32x32), cuda vs cpu: {held:.4f} of "
+          f"pixels take the same LUT rows and agree to 1e-4; {marked:.4f} of pixels carry the cube's mark")
+    if marked <= 0.0:
+        raise AssertionError("coupled reference: the cube leaves no mark on the pads' images")
+    return dict(diffs, tactile_held=held, full_cpu_step_ms=full_ms, jolt=jolt)
+
+
+def coupled_phase(device) -> dict:
+    """The coupled FEM+ABD world: the tactile Grasp-Lift id at its registered
+    16 envs from a pressed start (a warm step, COUPLED_STEPS steps under
+    sync-debug "error" with K1 and K2 once a step, torch.profiler's
+    activities and device time of one more step, one coupled solve alone,
+    K1 and K2 held to their plain versions on its frame); 2 envs card
+    against CPU; a scripted squeeze of -Uipc-v0 that must hold the cube; and
+    COUPLED_OTHER_STEPS steps of -Uipc-Depth-v0 and both Factory-UIPC ids."""
+    from tacex_tpu_torch import envs
+
+    out = {}
+    env = envs.make(GRASP_IDS[0], device=device)
+    n = env.cfg.num_envs
+    action = _coupled_action(env)
+    state, obs = env.reset_all(env.init_state())
+    state = _coupled_pressed(env, state)
+    t0 = time.perf_counter()
+    state, *_ = env.step(state, action)
+    torch.cuda.synchronize()
+    warm_ms = 1e3 * (time.perf_counter() - t0)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    state, (obs, reward, term, trunc, info), step_ms, launches = _coupled_steps(env, state, action, COUPLED_STEPS,
+                                                                               guarded=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches != {"deformation_pyramid": COUPLED_STEPS, "lut_shade": COUPLED_STEPS}:
+        raise AssertionError(f"coupled: kernel launches {launches} in {COUPLED_STEPS} steps, expected one each a step")
+    _check_finite("coupled", {"state": state, "obs": obs, "reward": reward, "info": info})
+    shapes = {k: tuple(v.shape) for k, v in obs.items()}
+    if shapes != {"proprio_obs": (n, 6), "vision_obs": (n, 32, 32, 6)}:
+        raise AssertionError(f"coupled: obs shapes {shapes}")
+    if tuple(info["tactile_rgb"].shape) != (n, 2, 32, 32, 3) or tuple(info["marker_motion"].shape)[:2] != (n, 2):
+        raise AssertionError("coupled: the tactile outputs are not (N, 2, ...) per pad")
+    grip = info["grip"]
+    if not bool((grip > 0.05).all()):
+        raise AssertionError(f"coupled: the pads do not press the cube: grip {grip.tolist()}")
+    kernels, device_ms = _launch_count(lambda: env.step(state, action))
+    aim = env._aim_positions(state.squeeze, state.lift)
+    solve_ms = _host_ms(lambda: env.world.step(state.gel, state.cube, env.scene, aim_pos=aim), iters=1)
+    log = {k: float(v) for k, v in info["log"].items()}
+    print(f"coupled: {GRASP_IDS[0]}, {n} envs, gel {env.gel.mesh.num_vertices} vertices, {COUPLED_STEPS} steps with no "
+          f"host sync: {step_ms:.1f} ms/step (host clock, synchronised; the warm step {warm_ms:.1f} ms; one coupled "
+          f"solve alone {solve_ms:.1f} ms, {env.cfg.decimation} a step), {kernels} device activities a step taking "
+          f"{device_ms:.1f} ms of device time (torch.profiler; {100.0 * device_ms / step_ms:.1f}% busy), "
+          f"K1/K2 launches {launches}, peak memory {peak_gb:.3f} GB; grip {float(grip.min()):.3f}-"
+          f"{float(grip.max()):.3f} mm; log {log}")
+    out[GRASP_IDS[0]] = dict(step_ms=step_ms, warm_ms=warm_ms, solve_ms=solve_ms, kernels_per_step=kernels,
+                             device_ms_per_step=device_ms, device_busy=device_ms / step_ms, peak_gb=peak_gb,
+                             launches=launches, log=log)
+    out["launches"] = launches
+    joined, mask, sigmas, idx, _ = _coupled_frame(env, state)
+    calib = env.sensor.calib
+    nb = calib.sensor_params.num_bins
+    kernel_rows = {
+        "pyramid warp 32x32x32": _pyramid_entry("32x32x32", joined, mask, sigmas, "warp"),
+        "lut full table 32x1024": _lut_entry("32x1024", idx, calib.features, calib.poly_lut.reshape(nb * nb, 18)),
+    }
+    _print_entries(kernel_rows)
+    out["kernels"] = kernel_rows
+    del env, state, obs, info
+    out["reference"] = _coupled_reference(device)
+
+    # the scripted squeeze of tests/test_grasp_lift.py: the cube must be held
+    env = envs.make(GRASP_IDS[1], device=device, squeeze_rate=4e-3, episode_length_s=3.0,
+                    stagger_initial_episodes=False)
+    state, _ = env.reset_all(env.init_state())
+    squeeze = torch.zeros((env.cfg.num_envs, 2), device=device)
+    squeeze[:, 0] = 1.0
+    t0 = time.perf_counter()
+    cube_z = []
+    for _ in range(SQUEEZE_STEPS):
+        state, obs, reward, term, trunc, info = env.step(state, squeeze)
+        cube_z.append(info["cube_z"])
+    torch.cuda.synchronize()
+    sq_ms = 1e3 * (time.perf_counter() - t0) / SQUEEZE_STEPS
+    cube_z = torch.stack(cube_z)
+    z_min = float(cube_z.min())
+    print(f"coupled: scripted squeeze of {GRASP_IDS[1]} ([1, 0], {env.cfg.num_envs} envs, {SQUEEZE_STEPS} steps, "
+          f"{sq_ms:.1f} ms/step): cube z {z_min * 1e3:.3f} mm at its lowest (limit -3 mm), "
+          f"{float(cube_z[-1].mean()) * 1e3:.3f} mm at the end; grip {float(info['grip'].mean()):.3f} mm")
+    if not (bool(torch.isfinite(cube_z).all()) and z_min > -0.003):
+        raise AssertionError(f"coupled: the squeeze does not hold the cube: lowest z {z_min}")
+    out["squeeze"] = dict(steps=SQUEEZE_STEPS, step_ms=sq_ms, cube_z_min_m=z_min)
+    del env, state
+
+    for env_id in (GRASP_IDS[2],) + FACTORY_UIPC_IDS:
+        env = envs.make(env_id, device=device)
+        state, obs = env.reset_all(env.init_state())
+        state, (obs, reward, term, trunc, info), ms, _ = _coupled_steps(env, state, _coupled_action(env),
+                                                                       COUPLED_OTHER_STEPS, guarded=True)
+        _check_finite(env_id, {"state": state, "obs": obs, "reward": reward, "log": info["log"]})
+        shapes = {k: tuple(v.shape) for k, v in obs.items()}
+        print(f"coupled: {env_id}, {env.cfg.num_envs} envs, {COUPLED_OTHER_STEPS} steps with no host sync: "
+              f"{ms:.1f} ms/step; obs {shapes}; log {({k: round(float(v), 4) for k, v in info['log'].items()})}")
+        out[env_id] = dict(step_ms=ms, obs_shapes=shapes)
+        del env, state, obs, info
+    return out
+
+
 def _state_to(state, device):
     """A copy of a port state on ``device``."""
     if dataclasses.is_dataclass(state):
@@ -1335,6 +1635,8 @@ def main() -> None:
 
     sensor = sensor_phase(device)
     kernels = kernel_phase(env, state, device, sensor.pop("frame"), sensor.pop("lut"))
+    calib = calib_frame_phase(device)
+    kernels.update(calib.pop("kernels"))
     run = slice_phase(env, state, obs, policy)
     reference_phase(device)
     del env, state, obs, policy
@@ -1347,9 +1649,11 @@ def main() -> None:
     pole = pole_phase(device)
     sac = sac_phase(device)
     uipc = uipc_phase(device)
+    coupled = coupled_phase(device)
 
     kernels.update(factory.pop("kernels"))
     kernels.update(uipc.pop("kernels"))
+    kernels.update(coupled.pop("kernels"))
     sources = {
         "deformation_pyramid": ("tacex_tpu_torch/csrc/pyramid.cu", "tacex_tpu/ops/pallas_pyramid.py:61"),
         "lut_shade": ("tacex_tpu_torch/csrc/lut_shade.cu", "tacex_tpu/ops/pallas_lut.py:63"),
@@ -1367,6 +1671,9 @@ def main() -> None:
         ("lut_shade", "lut full table 16x768", "uipc_step_16", uipc["launches"]),
         ("deformation_pyramid", "pyramid warp 64x24x32", "uipc_embedded_step_64", uipc["embedded_64"]["launches"]),
         ("lut_shade", "lut full table 64x768", "uipc_embedded_step_64", uipc["embedded_64"]["launches"]),
+        ("deformation_pyramid", "pyramid global 480x640", "sensor_640x480_4", calib["launches"]),
+        ("deformation_pyramid", "pyramid warp 32x32x32", "grasp_lift_tactile_step_16", coupled["launches"]),
+        ("lut_shade", "lut full table 32x1024", "grasp_lift_tactile_step_16", coupled["launches"]),
     )
     report = {
         "kernels": [
@@ -1391,6 +1698,8 @@ def main() -> None:
         "pole": pole,
         "sac": sac,
         "uipc": {k: v for k, v in uipc.items() if k != "launches"},
+        "coupled": {k: v for k, v in coupled.items() if k != "launches"},
+        "sensor_640x480_update_ms": calib["update_ms"],
     }
     print(json.dumps(report))
     card = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

@@ -12,7 +12,7 @@
 // two passes both have one tap changes nothing, and its re-pin repeats the
 // one before it, so it is skipped.
 //
-// Two designs, chosen per shape by tacex_deformation_pyramid_plan() below:
+// Three designs, chosen per shape by tacex_deformation_pyramid_plan() below:
 //
 // 1. One warp per image (W <= 32, H = 24 or 32: the flagship's 24x32
 //    tactile image and the Factory fingers' 32x32 ones). What bounds it:
@@ -52,6 +52,18 @@
 //    the re-pin. Loads go out 8 to 32 per thread before any is stored, so
 //    their latency overlaps. scripts/benchmarking/torch_kernel_probe.py
 //    times its phases in an instrumented copy of this file.
+//
+// 3. Global memory, for every image the cluster design cannot hold (the
+//    calibration's own 480x640 frame with the sensor's sigmas: no cluster
+//    of 8 CTAs holds the bands and halos of its 117-tap first level). Per
+//    level one H-pass kernel into a scratch image and one W-pass kernel
+//    back, with the re-pin fused in: two launches a level, one thread an
+//    output pixel, the image read through L1/L2 tap by tap with the same
+//    single reflection. What bounds it: at (4, 480, 640) the levels do ~480
+//    taps a pixel in all, 1.2 GFLOP, 18 us at 67 TFLOP/s, against 11 MB of
+//    image traffic a level; this simple design reads every tap from cache
+//    and is far from either bound (PERF.md has its time). The caller gives
+//    the scratch image (tacex_deformation_pyramid_global).
 //
 // No fast-math: sums stay in f32 in tap order.
 
@@ -528,6 +540,44 @@ pyramid_cluster_kernel(const float* __restrict__ joined, const uint8_t* __restri
   }
 }
 
+// -------------------------------------------------------- 3. global memory
+constexpr int kGlobalThreads = 256;
+
+// dst[img, r, c] = sum_k taps[k] * src[img, reflect(r + k - P, h), c]
+__global__ void __launch_bounds__(kGlobalThreads)
+pyramid_hpass_kernel(const float* __restrict__ src, float* __restrict__ dst, long long total, int h, int w,
+                     int ky, int off, const __grid_constant__ PyramidTaps p) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int c = static_cast<int>(i % w);
+  const long long row = i / w;  // img * h + r
+  const int r = static_cast<int>(row % h);
+  const float* col = src + (row - r) * w + c;
+  const float* t = p.taps + off;
+  const int pad = (ky - 1) / 2;
+  float acc = 0.0f;
+  for (int k = 0; k < ky; ++k) acc += t[k] * __ldg(col + static_cast<long long>(reflect(r + k - pad, h)) * w);
+  dst[i] = acc;
+}
+
+// dst[img, r, c] = sum_k taps[k] * src[img, r, reflect(c + k - P, w)], then
+// the re-pin: mask ? joined : dst
+__global__ void __launch_bounds__(kGlobalThreads)
+pyramid_wpass_kernel(const float* __restrict__ src, const float* __restrict__ joined,
+                     const uint8_t* __restrict__ mask, float* __restrict__ dst, long long total, int w, int kx,
+                     int off, int repin, const __grid_constant__ PyramidTaps p) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int c = static_cast<int>(i % w);
+  const float* row = src + (i - c);
+  const float* t = p.taps + off;
+  const int pad = (kx - 1) / 2;
+  float acc = 0.0f;
+  for (int k = 0; k < kx; ++k) acc += t[k] * __ldg(row + reflect(c + k - pad, w));
+  if (repin && __ldg(mask + i)) acc = __ldg(joined + i);
+  dst[i] = acc;
+}
+
 // A row pitch of at least n floats that is 4 more than a multiple of 32.
 constexpr int skew_pitch(int n) { return n + ((4 - n % 32) + 32) % 32; }
 
@@ -624,15 +674,52 @@ bool valid_taps(int h, int w, const int* ky, const int* kx, int levels) {
 
 }  // namespace
 
-// Which design takes an h x w image: 0 for a warp per image, else the
-// cluster size (1..8); -1 when the taps are not valid for the image, -2 when
-// no cluster's shared memory holds it.
+// Which design takes an h x w image: 0 for a warp per image, 1..8 for a
+// cluster of that many CTAs, 9 for the global-memory design (launched by
+// tacex_deformation_pyramid_global); -1 when the taps are not valid for the
+// image.
 extern "C" int tacex_deformation_pyramid_plan(int h, int w, const float* taps, const int* ky, const int* kx,
                                               int levels) {
   if (!valid_taps(h, w, ky, kx, levels)) return -1;
   if (warp_path(h, w, ky, kx, levels)) return 0;
   ClusterParams c{};
-  return cluster_params(h, w, taps, ky, kx, levels, &c) ? c.cluster : -2;
+  return cluster_params(h, w, taps, ky, kx, levels, &c) ? c.cluster : 9;
+}
+
+// The global-memory design for n images: per level an H pass from the
+// level's input (joined, then out) into `scratch` (n x h x w floats) and a
+// W pass with the re-pin into `out`. Returns the CUDA error of the launches
+// (0 = cudaSuccess); launches on `stream` and does not synchronise.
+extern "C" int tacex_deformation_pyramid_global(const float* joined, const uint8_t* mask, float* out,
+                                                float* scratch, const float* taps, const int* ky, const int* kx,
+                                                int levels, int n, int h, int w, void* stream) {
+  if (n < 0 || !valid_taps(h, w, ky, kx, levels)) return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  PyramidTaps p;
+  p.levels = levels;
+  int total_taps = 0;
+  for (int l = 0; l < levels; ++l) {
+    p.ky[l] = ky[l];
+    p.kx[l] = kx[l];
+    total_taps += ky[l] + kx[l];
+  }
+  for (int i = 0; i < total_taps; ++i) p.taps[i] = taps[i];
+  const long long total = static_cast<long long>(n) * h * w;
+  const long long blocks = (total + kGlobalThreads - 1) / kGlobalThreads;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const float* src = joined;
+  for (int l = 0, off = 0; l < levels; off += ky[l] + kx[l], ++l) {
+    if (ky[l] == 1 && kx[l] == 1) continue;  // the identity; its re-pin repeats the last one
+    pyramid_hpass_kernel<<<static_cast<unsigned>(blocks), kGlobalThreads, 0, s>>>(src, scratch, total, h, w, ky[l],
+                                                                                 off, p);
+    pyramid_wpass_kernel<<<static_cast<unsigned>(blocks), kGlobalThreads, 0, s>>>(
+        scratch, joined, mask, out, total, w, kx[l], off + ky[l], l < levels - 1 ? 1 : 0, p);
+    src = out;
+  }
+  if (src == joined)  // every level is the identity
+    return cudaMemcpyAsync(out, joined, total * sizeof(float), cudaMemcpyDeviceToDevice, s);
+  return cudaGetLastError();
 }
 
 // Returns the CUDA error of the launch (0 = cudaSuccess). Launches on

@@ -1,7 +1,8 @@
 """Carry an env state across from numpy.
 
 ``state_from_numpy(cls, leaves, device)`` builds a state dataclass of the
-port (``FactoryState``, ``PoleBalancingState``, ...) from a nested dict of
+port (``FactoryState``, ``PoleBalancingState``, ``GraspLiftState``,
+``FactoryUipcState``, ...) from a nested dict of
 numpy arrays (field name -> array, a dict for each nested dataclass), as
 the JAX package's state of the same task gives them, on ``device`` (the
 card unless the caller asks for the CPU), so that both envs can start from

@@ -18,6 +18,9 @@ from .blur import gaussian_blur, gaussian_taps
 
 MAX_LEVELS = 8
 MAX_TAPS = 768
+# tacex_deformation_pyramid_plan's code for the global-memory design (0 is
+# the warp design, 1..8 a cluster of that many CTAs)
+GLOBAL_DESIGN = 9
 
 
 def deformation_pyramid_plain(joined: torch.Tensor, mask: torch.Tensor, sigmas) -> torch.Tensor:
@@ -52,17 +55,15 @@ def _packed_taps(sigmas: tuple, h: int, w: int) -> tuple[np.ndarray, np.ndarray,
 
 @functools.lru_cache(maxsize=32)
 def _kernel_args(sigmas: tuple, h: int, w: int) -> tuple:
-    """The packed taps as the kernel takes them (pointers, level count),
-    after checking that the kernel takes an ``h`` x ``w`` image; the arrays
-    stay alive in the cache beside their pointers."""
+    """The kernel's design for an ``h`` x ``w`` image and the packed taps as
+    it takes them (pointers, level count); the arrays stay alive in the cache
+    beside their pointers."""
     taps, ky, kx = _packed_taps(sigmas, h, w)
     lib = _build.load_library()
-    if lib.tacex_deformation_pyramid_plan(h, w, taps.ctypes.data, ky.ctypes.data, kx.ctypes.data, len(ky)) < 0:
-        raise ValueError(
-            f"the pyramid kernel does not take a {h}x{w} image with these sigmas: "
-            "no cluster of 8 CTAs holds its bands and halos in shared memory"
-        )
-    return (taps, ky, kx), taps.ctypes.data, ky.ctypes.data, kx.ctypes.data, len(ky)
+    plan = lib.tacex_deformation_pyramid_plan(h, w, taps.ctypes.data, ky.ctypes.data, kx.ctypes.data, len(ky))
+    if plan < 0:
+        raise ValueError(f"the pyramid kernel refuses the taps of sigmas {sigmas} for a {h}x{w} image")
+    return (taps, ky, kx), plan, taps.ctypes.data, ky.ctypes.data, kx.ctypes.data, len(ky)
 
 
 def deformation_pyramid(joined: torch.Tensor, mask: torch.Tensor, sigmas) -> torch.Tensor:
@@ -70,10 +71,12 @@ def deformation_pyramid(joined: torch.Tensor, mask: torch.Tensor, sigmas) -> tor
 
     ``sigmas``: ``((sigma_x, sigma_y), ...)``, the pyramid levels then the
     final blur. A CPU tensor takes the plain version (differentiable); a CUDA
-    tensor launches the kernel or raises: a ``ValueError`` names an image
-    the kernel cannot hold (240x320 is taken; 480x640 with the sensor's
-    sigmas is not), a ``RuntimeError`` a ``joined`` that requires grad (the
-    kernel writes a result without a ``grad_fn``).
+    tensor launches the kernel or raises: a ``ValueError`` names levels,
+    taps or a blur wider than the image reflects, a ``RuntimeError`` a
+    ``joined`` that requires grad (the kernel writes a result without a
+    ``grad_fn``). Every image size is taken: the warp design, a cluster of
+    up to 8 CTAs, or, where no cluster holds the image (480x640 with the
+    sensor's sigmas), the global-memory design with a scratch image.
     """
     sigmas = tuple((float(sx), float(sy)) for sx, sy in sigmas)
     if joined.device.type == "cpu":
@@ -92,14 +95,21 @@ def deformation_pyramid(joined: torch.Tensor, mask: torch.Tensor, sigmas) -> tor
     if not (joined.is_contiguous() and mask.is_contiguous()):
         raise ValueError("joined and mask must be contiguous")
     n, h, w = joined.shape
-    _, taps, ky, kx, levels = _kernel_args(sigmas, h, w)
+    _, plan, taps, ky, kx, levels = _kernel_args(sigmas, h, w)
     lib = _build.load_library()
     out = torch.empty_like(joined)
     with torch.cuda.device(joined.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tacex_deformation_pyramid(
-            joined.data_ptr(), mask.data_ptr(), out.data_ptr(), taps, ky, kx, levels, n, h, w, stream
-        )
+        if plan == GLOBAL_DESIGN:
+            scratch = torch.empty_like(joined)
+            err = lib.tacex_deformation_pyramid_global(
+                joined.data_ptr(), mask.data_ptr(), out.data_ptr(), scratch.data_ptr(), taps, ky, kx, levels, n, h, w,
+                stream,
+            )
+        else:
+            err = lib.tacex_deformation_pyramid(
+                joined.data_ptr(), mask.data_ptr(), out.data_ptr(), taps, ky, kx, levels, n, h, w, stream
+            )
     if err != 0:
         raise RuntimeError(f"deformation_pyramid kernel launch failed: CUDA error {err}")
     deformation_pyramid.launches += 1

@@ -27,9 +27,15 @@ straight-through tangent anchored at the step start, which only matters to
 a gradient through ``step``; the port has none (``step`` raises for inputs
 that require grad).
 
+The vertex-triangle primitives (closest point, distance, and the
+segment-crosses-triangle tests of the line search's feasibility check) are
+here too: the coupled FEM+ABD world (``coupled.py``) builds its cross
+barriers on them.
+
 Not ported (they raise ``NotImplementedError``): self contact, static
-trimesh colliders, edge-edge contact, shell elements and the broad-phase
-overflow counters, none of which the UIPC ball-rolling envs use.
+trimesh colliders, edge-edge contact (and its primitives), shell elements
+and the broad-phase overflow counters, none of which the UIPC, Grasp-Lift
+or Factory-UIPC envs use.
 """
 
 from __future__ import annotations
@@ -53,6 +59,87 @@ def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """``jnp.clip``: a value on a bound takes half the gradient, as a tie of
     ``maximum``/``minimum`` splits it."""
     return torch.minimum(torch.maximum(x, x.new_full((), lo)), x.new_full((), hi))
+
+
+def _dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return (u * v).sum(-1)
+
+
+def _safe_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """num / den, with den replaced by 1e-30 where |den| <= 1e-30."""
+    return num / torch.where(den.abs() > 1e-30, den, 1e-30)
+
+
+def _point_triangle_closest(p, a, b, c):
+    """Closest point on triangle (a, b, c) to p, broadcast over leading dims
+    (Ericson, Real-Time Collision Detection 5.1.5, as a ``where`` cascade)."""
+    ab, ac, ap = b - a, c - a, p - a
+    d1, d2 = _dot(ab, ap), _dot(ac, ap)
+    bp = p - b
+    d3, d4 = _dot(ab, bp), _dot(ac, bp)
+    cp = p - c
+    d5, d6 = _dot(ab, cp), _dot(ac, cp)
+
+    va = d3 * d6 - d5 * d4
+    vb = d5 * d2 - d1 * d6
+    vc = d1 * d4 - d3 * d2
+    denom_f = torch.clamp(va + vb + vc, min=1e-30)
+    v_f = (vb / denom_f)[..., None]
+    w_f = (vc / denom_f)[..., None]
+
+    # edge parameters (guarded divisions)
+    t_ab = _clip(_safe_div(d1, d1 - d3), 0.0, 1.0)[..., None]
+    t_ac = _clip(_safe_div(d2, d2 - d6), 0.0, 1.0)[..., None]
+    t_bc = _clip(_safe_div(d4 - d3, (d4 - d3) + (d5 - d6)), 0.0, 1.0)[..., None]
+
+    q = a + v_f * ab + w_f * ac  # the face region
+    on_ab = (vc <= 0) & (d1 >= 0) & (d3 <= 0)
+    on_ac = (vb <= 0) & (d2 >= 0) & (d6 <= 0)
+    on_bc = (va <= 0) & ((d4 - d3) >= 0) & ((d5 - d6) >= 0)
+    at_a = (d1 <= 0) & (d2 <= 0)
+    at_b = (d3 >= 0) & (d4 <= d3)
+    at_c = (d6 >= 0) & (d5 <= d6)
+    # later writes win: edges, then vertices
+    q = torch.where(on_bc[..., None], b + t_bc * (c - b), q)
+    q = torch.where(on_ac[..., None], a + t_ac * ac, q)
+    q = torch.where(on_ab[..., None], a + t_ab * ab, q)
+    q = torch.where(at_c[..., None], c, q)
+    q = torch.where(at_b[..., None], b, q)
+    return torch.where(at_a[..., None], a, q)
+
+
+def _point_triangle_distance(p, a, b, c):
+    """Unsigned point-triangle distance; the eps under the sqrt keeps the
+    derivatives finite at zero distance."""
+    q = _point_triangle_closest(p, a, b, c)
+    return torch.sqrt(((p - q) ** 2).sum(-1) + 1e-18)
+
+
+def _segment_crosses_triangle(p0, p1, a, b, c, eps: float = 1e-4):
+    """True where the segment p0 -> p1 pierces triangle (a, b, c)
+    (Moeller-Trumbore over broadcast leading dims): the line search rejects
+    a step that carries a vertex through a triangle, which an unsigned
+    distance barrier cannot see."""
+    d = p1 - p0
+    e1, e2 = b - a, c - a
+    h = torch.linalg.cross(d, e2, dim=-1)
+    det = _dot(e1, h)
+    safe = det.abs() > 1e-14
+    f = 1.0 / torch.where(safe, det, 1.0)
+    s = p0 - a
+    u = f * _dot(s, h)
+    q = torch.linalg.cross(s, e1, dim=-1)
+    v = f * _dot(d, q)
+    t = f * _dot(e2, q)
+    return safe & (u >= -eps) & (v >= -eps) & (u + v <= 1.0 + eps) & (t > -eps) & (t < 1.0 + eps)
+
+
+def _segment_crosses_moving_triangle(p0, p1, a0, b0, c0, a1, b1, c1, eps: float = 1e-4):
+    """The crossing test against a moving triangle, in its co-moving frame:
+    the triangle's mean displacement is taken off the vertex's motion, and
+    the segment tested against the end pose."""
+    shift = ((a1 - a0) + (b1 - b0) + (c1 - c0)) / 3.0
+    return _segment_crosses_triangle(p0 + shift, p1, a1, b1, c1, eps)
 
 
 def barrier_extended(d, kappa: float, d_hat: float):
@@ -86,6 +173,24 @@ def barrier_force_mag(d, kappa: float, d_hat: float):
     d2b_d0 = 2.0 * lg + 4.0 * (d0 - d_hat) / d0 - (d0 - d_hat) ** 2 / d0**2
     g = torch.where(d < d0, db_d0 + d2b_d0 * (d - d0), g_core)
     return torch.where(d < d_hat, kappa * g.abs(), 0.0)
+
+
+def scene_friction_basis(p: torch.Tensor, scene, kappa: float, d_hat: float):
+    """(lambda_n, normal) of (N, P, 3) points against the scene, detached:
+    the barrier's force magnitude and the SDF's normalised gradient."""
+    with torch.enable_grad():
+        pv = p.detach().requires_grad_(True)
+        d = scene.sdf(pv)
+        (n,) = torch.autograd.grad(d.sum(), pv)
+    n = n / torch.clamp(torch.linalg.vector_norm(n, dim=-1, keepdim=True), min=1e-9)
+    return barrier_force_mag(d.detach(), kappa, d_hat), n
+
+
+def friction_mollifier(s: torch.Tensor, eps: float) -> torch.Tensor:
+    """IPC's smooth |u_t| in s = |u_t|^2: quadratic below eps, linear beyond,
+    with a clamped sqrt argument so that both branches keep finite first and
+    second derivatives at u_t = 0."""
+    return torch.where(s < eps * eps, s / (2 * eps) + eps / 2, torch.sqrt(torch.maximum(s, s.new_full((), eps * eps))))
 
 
 def derivatives(energy, x: torch.Tensor):
@@ -168,7 +273,8 @@ class RigidSdfScene:
         points against its own colliders."""
         if self.threads is not None:
             raise NotImplementedError(
-                "thread colliders in the soft-body scene are not ported yet (ROADMAP Queue 1 item 11: Factory-UIPC)"
+                "thread colliders in the soft-body scene are not ported yet "
+                "(ROADMAP Queue 1 item 9: the UIPC API and screw_and_nut)"
             )
         return sdf_ops.scene_sdf(p, self.spheres, self.boxes, self.capsules, self.planes)
 
@@ -231,6 +337,10 @@ class SoftBodyModel:
         assert (masses > 0).all(), "zero-mass vertex: every vertex must belong to a tet"
         self.masses = torch.as_tensor(masses, **f32)  # (V,)
         self.surface_verts = torch.as_tensor(np.asarray(mesh.surface_verts, np.int64), device=dev)
+        st = np.asarray(mesh.surface_tris, np.int64)
+        self.surface_tris = torch.as_tensor(st, device=dev)  # (Ts, 3) vertex ids
+        tri_pts = np.asarray(mesh.points)[st]
+        self._tri_radius_max = float(np.linalg.norm(tri_pts - tri_pts.mean(1, keepdims=True), axis=-1).max())
         self._gravity = torch.tensor(c.gravity, **f32)
 
         # attachments: soft position constraints of strength ratio x m_i / dt^2
@@ -262,13 +372,7 @@ class SoftBodyModel:
             lam_n, n_dir = friction_basis  # (N, Vs), (N, Vs, 3): lagged
             du = xs - x_prev.index_select(1, self.surface_verts)
             du_t = du - (du * n_dir).sum(-1, keepdim=True) * n_dir
-            # smooth |u_t| (quadratic below eps, linear beyond) written in
-            # s = |du_t|^2 with a clamped sqrt argument: both branches keep
-            # finite first and second derivatives at du_t = 0
-            ut2 = (du_t**2).sum(-1)
-            eps = c.eps_velocity * dt
-            f0 = torch.where(ut2 < eps * eps, ut2 / (2 * eps) + eps / 2,
-                             torch.sqrt(torch.maximum(ut2, ut2.new_full((), eps * eps))))
+            f0 = friction_mollifier((du_t**2).sum(-1), c.eps_velocity * dt)
             e = e + c.friction_mu * (lam_n * f0).sum(-1)
         return (e, d) if with_sdf else e
 
@@ -277,12 +381,7 @@ class SoftBodyModel:
         ``x_k``: the normal is the scene SDF's gradient, normalised."""
         if self.cfg.friction_mu <= 0:
             return None
-        with torch.enable_grad():
-            xs = x_k.detach().index_select(1, self.surface_verts).requires_grad_(True)
-            d = scene.sdf(xs)
-            (n,) = torch.autograd.grad(d.sum(), xs)
-        n = n / torch.clamp(torch.linalg.vector_norm(n, dim=-1, keepdim=True), min=1e-9)
-        return barrier_force_mag(d.detach(), self.cfg.kappa, self.cfg.d_hat), n
+        return scene_friction_basis(x_k.index_select(1, self.surface_verts), scene, self.cfg.kappa, self.cfg.d_hat)
 
     # -------------------------------------------------------------- one solve
     def _solve(self, x, v, scene, aim_pos, dt):

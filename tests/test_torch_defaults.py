@@ -20,6 +20,9 @@ from tacex_tpu_torch.envs.ball_rolling.env_uipc import BallRollingUipcEnv
 from tacex_tpu_torch.envs.base import DirectRLEnv
 from tacex_tpu_torch.envs.convert import state_from_numpy as any_state_from_numpy
 from tacex_tpu_torch.envs.factory.env import FactoryEnv
+from tacex_tpu_torch.envs.factory.env_uipc import FactoryUipcEnv
+from tacex_tpu_torch.envs.grasp_lift.env import GraspLiftEnv
+from tacex_tpu_torch.physics.soft.abd import AbdModel, AbdState
 from tacex_tpu_torch.envs.pole_balancing.env import PoleBalancingEnv
 from tacex_tpu_torch.rl import PPO, SAC
 from tacex_tpu_torch.physics.soft.embed import EmbeddedFaceGrid
@@ -49,7 +52,18 @@ ENTRY_POINTS = {
     "RigidSdfScene.empty": RigidSdfScene.empty,
     "EmbeddedFaceGrid": EmbeddedFaceGrid,
     "FemMarkerFlow": FemMarkerFlow,
+    "GraspLiftEnv": GraspLiftEnv,
+    "FactoryUipcEnv": FactoryUipcEnv,
+    "AbdModel": AbdModel,
+    "AbdState.identity": AbdState.identity,
 }
+COUPLED_IDS = [
+    "TacEx-Grasp-Lift-Uipc-v0",
+    "TacEx-Grasp-Lift-Uipc-Depth-v0",
+    "TacEx-Grasp-Lift-Uipc-Tactile-v0",
+    "TacEx-Factory-PegInsert-Uipc-v0",
+    "TacEx-Factory-PegInsert-Uipc-Depth-v0",
+]
 UIPC_IDS = ["TacEx-Ball-Rolling-Tactile-RGB-Uipc-v0", "TacEx-Ball-Rolling-Uipc-Textured-v0"]
 OTHER_IDS = [
     "TacEx-Factory-PegInsert-Direct-v0",
@@ -152,3 +166,31 @@ def test_cpu_on_request():
     env = envs.make(ENV_ID, num_envs=2, device="cpu")
     assert env.device.type == "cpu" and env.sensor.device.type == "cpu"
     assert tdevice.resolve("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("env_id", COUPLED_IDS)
+def test_coupled_ids_need_the_card_unless_asked(no_card, env_id):
+    """The Grasp-Lift and Factory-UIPC ids take the card at their registered
+    16 envs and raise without one; on request the env, its coupled solver
+    (the gel and the affine body) and, for the tactile id, the sensor run
+    on the CPU."""
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        envs.make(env_id)
+    env = envs.make(env_id, num_envs=2, device="cpu")
+    assert env.device.type == "cpu" and env.world.device.type == "cpu"
+    assert env.gel.masses.device.type == "cpu" and env.world.abd.mass.device.type == "cpu"
+    if "Tactile" in env_id:
+        assert env.sensor.device.type == "cpu"
+    cfg = envs.base._REGISTRY[env_id][1]()
+    assert cfg.num_envs == 16 and (cfg.newton_iters, cfg.cg_iters, cfg.coupling_k) == (6, 24, 4)
+
+
+def test_affine_body_without_a_card_raises(no_card):
+    from tacex_tpu_torch.envs.grasp_lift.env import _cube_surface
+    from tacex_tpu_torch.physics.soft.abd import AbdSolverCfg
+
+    pts, tris = _cube_surface()
+    for build in (lambda: AbdModel([pts], [tris], cfg=AbdSolverCfg(contact_k=0, ee_contact_k=0)),
+                  lambda: AbdState.identity(2, 1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()

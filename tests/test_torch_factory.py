@@ -126,6 +126,6 @@ def test_factory_ids_are_registered_with_the_jax_configs():
     for env_id in FACTORY_IDS:
         cfg_t, cfg_j = registry_t[env_id][1](), registry_j[env_id][1]()
         assert cfg_t.to_dict() == cfg_j.to_dict(), env_id
-    assert "TacEx-Factory-PegInsert-Uipc-v0" not in registry_t
+    assert "TacEx-Factory-PegInsert-Uipc-v0" in registry_t  # the coupled world is ported
     env = tenvs.make("TacEx-Factory-NutThread-Direct-v0", num_envs=2, device="cpu")
     assert env.sensor.num_envs == 4 and env._tris.shape[1:] == (3, 3)

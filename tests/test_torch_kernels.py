@@ -34,7 +34,8 @@ def sensor_sigmas(hw):
 SLICE_SIGMAS_24x32 = sensor_sigmas((24, 32))
 SIGMAS = ((3.0, 2.2), (1.5, 1.1), (0.8, 0.6), (1.0, 0.75))
 # the design each image size below takes: 0 a warp per image, else the CTAs of its cluster
-PLANS = {(24, 32): 0, (32, 32): 0, (48, 64): 1, (120, 160): 2, (180, 240): 4, (240, 320): 8}
+# (9: the global-memory design, for an image no cluster holds)
+PLANS = {(24, 32): 0, (32, 32): 0, (48, 64): 1, (120, 160): 2, (180, 240): 4, (240, 320): 8, (480, 640): 9}
 
 pytestmark = pytest.mark.cuda
 
@@ -56,6 +57,7 @@ def cuda():
         ((2, 240, 320), sensor_sigmas((240, 320))),  # the default sensor: a cluster of 8 CTAs
         ((2, 120, 160), sensor_sigmas((120, 160))),  # a cluster of 2 CTAs
         ((2, 180, 240), sensor_sigmas((180, 240))),  # a cluster of 4 CTAs
+        ((2, 480, 640), sensor_sigmas((480, 640))),  # the calibration's frame: the global-memory design
     ],
 )
 def test_pyramid_kernel_matches_plain(cuda, shape, sigmas):
@@ -94,9 +96,26 @@ def test_lut_shade_kernel_matches_plain(cuda):
 
 
 def test_pyramid_kernel_refuses_an_image_it_cannot_hold(cuda):
-    x = torch.zeros((1, 480, 640), device=cuda)
-    with pytest.raises(ValueError, match="480x640"):
-        tpyr.deformation_pyramid(x, x.bool(), sensor_sigmas((480, 640)))
+    """The image no cluster of 8 CTAs holds (the calibration's 480x640 frame
+    with the sensor's sigmas) is no longer refused: the plan sends it to the
+    global-memory design, which launches and agrees with the plain version
+    to 1e-5. The kernel still refuses a blur wider than the image reflects."""
+    sigmas = sensor_sigmas((480, 640))
+    taps, ky, kx = tpyr._packed_taps(tuple((float(sx), float(sy)) for sx, sy in sigmas), 480, 640)
+    plan = _build.load_library().tacex_deformation_pyramid_plan(
+        480, 640, taps.ctypes.data, ky.ctypes.data, kx.ctypes.data, len(ky)
+    )
+    assert plan == tpyr.GLOBAL_DESIGN
+    rng = np.random.default_rng(3)
+    joined = torch.from_numpy(rng.uniform(-1, 2, (1, 480, 640)).astype(np.float32)).to(cuda)
+    mask = torch.from_numpy(rng.random((1, 480, 640)) < 0.2).to(cuda)
+    before = tpyr.deformation_pyramid.launches
+    out = tpyr.deformation_pyramid(joined, mask, sigmas)
+    assert tpyr.deformation_pyramid.launches == before + 1
+    torch.testing.assert_close(out, tpyr.deformation_pyramid_plain(joined, mask, sigmas), atol=1e-5, rtol=0)
+    x = torch.zeros((1, 8, 8), device=cuda)
+    with pytest.raises(ValueError, match="wider than"):
+        tpyr.deformation_pyramid(x, x.bool(), ((20.0, 20.0),))
 
 
 def test_lut_shade_kernel_ragged_pixels(cuda):

@@ -59,7 +59,19 @@ SLICE_MODULES = [
     "tacex_tpu_torch.sensors.gelsight.fem.marker_flow",
     "tacex_tpu_torch.sensors.gelsight.fem",
     "tacex_tpu_torch.envs.ball_rolling.env_uipc",
+    "tacex_tpu_torch.physics.soft.abd",
+    "tacex_tpu_torch.physics.soft.coupled",
+    "tacex_tpu_torch.envs.grasp_lift.env",
+    "tacex_tpu_torch.envs.grasp_lift",
+    "tacex_tpu_torch.envs.factory.env_uipc",
 ]
+COUPLED_IDS = (
+    "TacEx-Grasp-Lift-Uipc-v0",
+    "TacEx-Grasp-Lift-Uipc-Depth-v0",
+    "TacEx-Grasp-Lift-Uipc-Tactile-v0",
+    "TacEx-Factory-PegInsert-Uipc-v0",
+    "TacEx-Factory-PegInsert-Uipc-Depth-v0",
+)
 
 
 def test_import_loads_no_jax():
@@ -70,8 +82,30 @@ def test_import_loads_no_jax():
         "from tacex_tpu_torch import envs\n"
         "for env_id in ('TacEx-Ball-Rolling-Taxim-Fots-v0', 'TacEx-Factory-PegInsert-Direct-v0', "
         "'TacEx-Pole-Balancing-Base-v0', 'TacEx-Ball-Rolling-Tactile-RGB-Uipc-v0', "
-        "'TacEx-Ball-Rolling-Uipc-Textured-v0'):\n"
+        f"'TacEx-Ball-Rolling-Uipc-Textured-v0') + {COUPLED_IDS!r}:\n"
         "    envs.make(env_id, num_envs=2, device='cpu')\n"
+        "assert len(envs.base._REGISTRY) == 17\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tacex_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_coupled_step_loads_no_jax():
+    """A step of the tactile Grasp-Lift id (the coupled solve, the sensor on
+    both pads) and of the Factory-UIPC id at 2 envs, with one Newton and one
+    CG iteration, loads neither jax nor the JAX package."""
+    code = (
+        "import sys, torch\n"
+        "from tacex_tpu_torch import envs\n"
+        "for env_id, a in (('TacEx-Grasp-Lift-Uipc-Tactile-v0', 2), ('TacEx-Factory-PegInsert-Uipc-v0', 4)):\n"
+        "    env = envs.make(env_id, num_envs=2, newton_iters=1, cg_iters=1, device='cpu')\n"
+        "    st, obs = env.reset_all(env.init_state())\n"
+        "    st, obs, rew, term, trunc, info = env.step(st, torch.ones((2, a)))\n"
+        "    assert bool(torch.isfinite(rew).all()) and 'Metric/missed_barriers' in info['log']\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tacex_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

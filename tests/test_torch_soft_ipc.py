@@ -221,7 +221,7 @@ def test_unported_branches_raise():
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         model.broad_phase_overflow(torch.zeros((mesh.num_vertices, 3)))
     scene = tipc.RigidSdfScene.empty(1, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         model.step(tipc.SoftBodyState.init(1, mesh.points, device="cpu"),
                    tipc.RigidSdfScene(scene.spheres, scene.boxes, scene.capsules, scene.planes, torch.zeros((1, 1, 12))))
     state = tipc.SoftBodyState.init(1, mesh.points, device="cpu")
