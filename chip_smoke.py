@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port once on one NVIDIA GPU: the flagship env step,
 PPO training on it, the other ball-rolling tasks, every shading path, the
 Factory tasks, pole balancing, SAC, the soft FEM gel pad of the UIPC
-ball-rolling tasks, and the coupled FEM+ABD world of the Grasp-Lift and
-Factory-UIPC tasks.
+ball-rolling tasks, the user-facing tools and demos, and the coupled FEM+ABD
+world of the Grasp-Lift and Factory-UIPC tasks.
 
     python3 chip_smoke.py
 
@@ -99,8 +99,23 @@ package beside this file; it imports nothing of JAX. In order it:
      under the bin rule; at the registered iterations it prints how far a
      2e-9 m jolt of the gel moves the CPU's own step); the scripted
      squeeze of ``-Uipc-v0`` (action [1, 0], 5 steps: the cube must stay
-     above -3 mm); and 2 steps each of ``-Uipc-Depth-v0`` and both
-     Factory-UIPC ids under sync-debug "error".
+     above -3 mm); and 1 step each of ``-Uipc-Depth-v0`` and both
+     Factory-UIPC ids under sync-debug "error";
+ 18. (before step 17) the user-facing tools, each through its script's entry
+     point, with the launch counters reset just before it: the 26-shape
+     Taxim library at 240x320 in one ``render`` (``check_taxim_sim_torch``;
+     K1 and K2 once, 2 shapes held to the CPU's render under the bin rule);
+     ``follow_goal_torch`` at its 150 steps (K1 and K2 once a step on one
+     240x320 image); ``pick_up_rigid_torch`` at its 4 x 120 steps (the ball
+     must rise 5 cm); ``check_mani_skill_marker_torch`` at its 8 steps (no
+     kernel; the markers must move); ``pick_up_uipc_torch`` cut to 4 x 5
+     steps (finite); ``train_torch.py`` -> ``play_torch.py`` on the flagship
+     at 512 envs (2 iterations with the dashboard, 20 played steps with
+     ``--save_frames``; the played first action is the trained net's to
+     1e-6); ``benchmark_non_rl_example_torch`` at its 64 envs and 100
+     frames; and K1 and K2 held to their plain versions and timed on the
+     library's (26, 240, 320) frame and on the pressed sphere's 1- and 2-image
+     frames (the follow-goal and pick-up demos' shapes).
 
 The second-to-last line is a JSON object with a row per kernel and shape:
 its launches on the main path that runs it at that shape, its error against
@@ -114,7 +129,6 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -163,9 +177,23 @@ COUPLED_PRESS = 6e-4
 REF_NEWTON_ITERS = 2
 REF_CG_ITERS = 8
 COUPLED_STEPS = 3
-COUPLED_OTHER_STEPS = 2
+COUPLED_OTHER_STEPS = 1
 SQUEEZE_STEPS = 5
 CALIB_ENVS = 4
+# the tools phase: the scripts' own default sizes (scripts/demos, scripts/benchmarking)
+TOOLS_RES = (240, 320)
+FOLLOW_GOAL_STEPS = 150
+FOLLOW_GOAL_MAX_ERROR = 2e-4  # m, the mean after step 10 (the CPU test's 0.2 mm)
+PICK_UP_RIGID_STEPS = 120  # a phase, 4 phases
+PICK_UP_RIGID_MIN_LIFT = 0.05
+MANI_SKILL_STEPS = 8
+PICK_UP_UIPC_STEPS = 5  # a phase (the demo's default is 100)
+PLAY_ENVS = 512
+PLAY_ITERATIONS = 2
+PLAY_STEPS = 20
+NON_RL_ENVS = 64
+NON_RL_FRAMES = 100
+TOOLS_CPU_SHAPES = 2  # the library shapes also rendered on the CPU
 WARMUP_STEPS = 2
 STEPS = 10
 KERNEL_ATOL = 1e-5
@@ -221,14 +249,29 @@ def _depth_frame(sensor, depth):
     """The sensor's frame of a (n, h, w) depth map up to the kernels' inputs."""
     from tacex_tpu_torch.sensors.gelsight.taxim import optical
 
-    n = depth.shape[0]
     hm = sensor.height_map_from_depth(depth)
-    shifted = optical.shift_height_map(hm, sensor.compute_indentation_depth(hm))
-    joined, mask, sigmas = optical.deformation_inputs(sensor.calib, shifted)
-    deformed, _ = optical.compute_gel_deformation(sensor.calib, shifted)
-    grad_mag, grad_dir = optical.generate_normals(sensor.calib, -deformed / sensor.calib.sensor_params.pixmm)
-    idx_mag, idx_dir = optical.lut_bins(sensor.calib, grad_mag, grad_dir)
-    nb = sensor.calib.sensor_params.num_bins
+    return _height_frame(sensor.calib, optical.shift_height_map(hm, sensor.compute_indentation_depth(hm)))
+
+
+def _optical_bins(calib, shifted):
+    """The LUT gradients and bins of (n, h, w) shifted height maps."""
+    from tacex_tpu_torch.sensors.gelsight.taxim import optical
+
+    deformed, _ = optical.compute_gel_deformation(calib, shifted)
+    grad_mag, grad_dir = optical.generate_normals(calib, -deformed / calib.sensor_params.pixmm)
+    return grad_mag, grad_dir, optical.lut_bins(calib, grad_mag, grad_dir)
+
+
+def _height_frame(calib, shifted):
+    """The kernels' inputs of the optical path on (n, h, w) shifted height
+    maps (mm): the pyramid's (joined, mask, sigmas) and, after the
+    deformation, the LUT indices (full table and direction only)."""
+    from tacex_tpu_torch.sensors.gelsight.taxim import optical
+
+    n = shifted.shape[0]
+    joined, mask, sigmas = optical.deformation_inputs(calib, shifted)
+    _, _, (idx_mag, idx_dir) = _optical_bins(calib, shifted)
+    nb = calib.sensor_params.num_bins
     p = idx_mag.shape[-2] * idx_mag.shape[-1]
     idx = (idx_mag * nb + idx_dir).reshape(n, p).contiguous()
     return joined.contiguous(), mask.contiguous(), sigmas, idx, idx_dir.reshape(n, p).contiguous()
@@ -408,10 +451,7 @@ def _sensor_frame(sensor, out):
 
     shifted = optical.shift_height_map(out["height_map"], out["indentation_depth"])
     joined, mask, sigmas = optical.deformation_inputs(sensor.calib, shifted)
-    deformed, _ = optical.compute_gel_deformation(sensor.calib, shifted)
-    grad_mag, grad_dir = optical.generate_normals(sensor.calib, -deformed / sensor.calib.sensor_params.pixmm)
-    bins = optical.lut_bins(sensor.calib, grad_mag, grad_dir)
-    return (joined.contiguous(), mask.contiguous(), sigmas), grad_mag, grad_dir, bins
+    return (joined.contiguous(), mask.contiguous(), sigmas), *_optical_bins(sensor.calib, shifted)
 
 
 def sensor_phase(device) -> dict:
@@ -1590,6 +1630,206 @@ def coupled_phase(device) -> dict:
     return out
 
 
+def _tool(rel: str) -> dict:
+    """The namespace of a script under ``scripts/`` (its ``main`` and helpers)."""
+    import runpy
+
+    return runpy.run_path(str(REPO / "scripts" / rel))
+
+
+def _counted(fn):
+    """``fn()`` with the launch counters reset just before it: (its result,
+    host ms to a synchronise after it, launches)."""
+    torch.cuda.synchronize()
+    _reset_counters()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, 1e3 * (time.perf_counter() - t0), _read_counters()
+
+
+def _expect_launches(tag: str, launches: dict, n: int) -> None:
+    if launches != {"deformation_pyramid": n, "lut_shade": n}:
+        raise AssertionError(f"{tag}: kernel launches {launches}, expected {n} of each")
+
+
+def _tool_kernels(calib, shifted) -> dict:
+    """K1 (cluster design) and K2 held to their plain versions and timed on
+    the optical frame of (n, 240, 320) shifted height maps (mm)."""
+    joined, mask, sigmas, idx, _ = _height_frame(calib, shifted)
+    n, h, w = joined.shape
+    nb = calib.sensor_params.num_bins
+    entries = {
+        f"pyramid cluster {n}x{h}x{w}": _pyramid_entry(f"{n}x{h}x{w}", joined, mask, sigmas, "cluster"),
+        f"lut full table {n}x{h * w}": _lut_entry(f"{n}x{h * w}", idx, calib.features,
+                                                  calib.poly_lut.reshape(nb * nb, 18)),
+    }
+    _print_entries(entries)
+    return entries
+
+
+def _library_phase(device) -> dict:
+    """``check_taxim_sim_torch.render_library`` on the 26 shapes at 240x320
+    (one K1 and one K2 launch), TOOLS_CPU_SHAPES of them held to the CPU's
+    render under the bin rule, and K1/K2 timed on the frame."""
+    from _torch_bins import FINGER_NOISE_FLOOR, assert_bin_rule, lut_spread
+    from tacex_tpu_torch.assets.shapes import SHAPE_LIBRARY, shape_height_map
+    from tacex_tpu_torch.sensors.gelsight import taxim
+    from tacex_tpu_torch.sensors.gelsight.taxim import optical
+
+    render_library = _tool("demos/check_taxim_sim_torch.py")["render_library"]
+    names = list(SHAPE_LIBRARY)
+    calib = taxim.load_calib()
+    imgs, ms, launches = _counted(lambda: render_library(calib, names, TOOLS_RES, 1.0, False, device))
+    _expect_launches("check_taxim_26", launches, 1)
+    if tuple(imgs.shape) != (len(names),) + TOOLS_RES + (3,) or not bool(torch.isfinite(imgs).all()):
+        raise AssertionError(f"check_taxim_26: images {tuple(imgs.shape)} are not finite (26, 240, 320, 3)")
+    k = TOOLS_CPU_SHAPES
+    cpu = render_library(calib, names[:k], TOOLS_RES, 1.0, False, "cpu")
+    hms = torch.as_tensor(np.stack([shape_height_map(nm, TOOLS_RES) for nm in names]))
+    cal_g, cal_c = calib.at_resolution(TOOLS_RES).to(device), calib.at_resolution(TOOLS_RES)
+    shifted = optical.shift_height_map(hms.to(device), torch.ones(len(names), device=device))
+    _, _, bins_g = _optical_bins(cal_g, shifted[:k])
+    gm_c, gd_c, bins_c = _optical_bins(cal_c, shifted[:k].cpu())
+    nb = cal_c.sensor_params.num_bins
+    held = assert_bin_rule(imgs[:k].cpu().numpy(), cpu.numpy(), gm_c.numpy(), gd_c.numpy(), nb,
+                           lut_spread(cal_c.poly_lut.numpy(), cal_c.features.numpy(), nb),
+                           bins_t=[b.cpu().numpy() for b in bins_g], bins_j=[b.numpy() for b in bins_c],
+                           edge_bins=EDGE_BINS, noise_floor=FINGER_NOISE_FLOOR)
+    print(f"tools: check_taxim_sim render_library, {len(names)} shapes at {TOOLS_RES[0]}x{TOOLS_RES[1]} in one render: "
+          f"{ms:.3f} ms (host clock, synchronised, the first call), launches {launches}; {k} shapes held to the "
+          f"CPU's render under the bin rule, {held:.4f} of pixels to 1e-4")
+    return dict(render_ms=ms, launches=launches, cpu_pixels_held=held, kernels=_tool_kernels(cal_g, shifted))
+
+
+def _pressed_frame(n: int, device):
+    """The default sensor's shifted height maps of the verify recipe's
+    pressed 4 mm sphere on ``n`` envs: the (n, 240, 320) frame the sensor
+    updates of the follow-goal and pick-up demos give K1 and K2."""
+    from tacex_tpu_torch.sensors.gelsight.sensor import GelSightSensor
+    from tacex_tpu_torch.sensors.gelsight.sensor_cfg import gelsight_mini_cfg
+    from tacex_tpu_torch.sensors.gelsight.taxim import optical
+
+    sensor = GelSightSensor(gelsight_mini_cfg(), num_envs=n, device=device)
+    hm = sensor.height_map_from_depth(_press_depth(n, device))
+    return sensor.calib, optical.shift_height_map(hm, sensor.compute_indentation_depth(hm))
+
+
+def _play_round_trip(device, root: Path) -> dict:
+    """``train_torch.py`` (PLAY_ITERATIONS PPO iterations of the flagship at
+    PLAY_ENVS envs, the dashboard and a checkpoint each iteration), then
+    ``play_torch.py`` (PLAY_STEPS steps with --save_frames): the played
+    policy's first action is the trained net's."""
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+    ckpt, viz, frames = root / "ckpt", root / "viz", root / "frames"
+    trainer, train_ms, train_launches = _counted(lambda: _tool("train_torch.py")["main"]([
+        "--task", ENV_ID, "--num_envs", str(PLAY_ENVS), "--iterations", str(PLAY_ITERATIONS),
+        "--checkpoint_dir", str(ckpt), "--checkpoint_interval", "1", "--viz_dir", str(viz), "--viz_interval", "1",
+        "--device", str(device)]))
+    made = sorted(q.name for q in viz.iterdir())
+    if not {"metrics.jsonl", "metrics.png", "tactile_obs_strip.png"} <= set(made):
+        raise AssertionError(f"train_torch --viz_dir wrote {made}")
+    res, play_ms, play_launches = _counted(lambda: _tool("play_torch.py")["main"]([
+        "--task", ENV_ID, "--num_envs", str(PLAY_ENVS), "--steps", str(PLAY_STEPS), "--checkpoint_dir", str(ckpt),
+        "--save_frames", str(frames), "--device", str(device)]))
+    with torch.no_grad():
+        mean, _, _ = trainer.net(res["first_obs"])
+    err = float((res["first_action"] - mean).abs().max())
+    written = len(list(frames.glob("frame_*.png")))
+    print(f"tools: train_torch -> play_torch, {ENV_ID} at {PLAY_ENVS} envs: {PLAY_ITERATIONS} iterations in "
+          f"{train_ms:.1f} ms (K1/K2 launches {train_launches}), restored {res['checkpoint'].name}; {PLAY_STEPS} played "
+          f"steps in {res['loop_s'] * 1e3:.1f} ms ({res['loop_s'] * 1e3 / PLAY_STEPS:.3f} ms a step with the frames "
+          f"written; the whole script {play_ms:.1f} ms, launches {play_launches}), {written} frames; first action "
+          f"vs the trained net {err:.2e}; mean return {res['mean_return']:.4f}")
+    if res["checkpoint"].name != f"ckpt_{PLAY_ITERATIONS - 1}.pt" or not err <= 1e-6 or written != PLAY_STEPS:
+        raise AssertionError(f"play: checkpoint {res['checkpoint']}, first action off by {err}, {written} frames")
+    if play_launches["deformation_pyramid"] < PLAY_STEPS or play_launches["lut_shade"] < PLAY_STEPS:
+        raise AssertionError(f"play: kernel launches {play_launches} in {PLAY_STEPS} steps")
+    return dict(train_ms=train_ms, play_step_ms=res["loop_s"] * 1e3 / PLAY_STEPS, play_ms=play_ms,
+                first_action_err=err, mean_return=res["mean_return"], launches=play_launches)
+
+
+def tools_phase(device) -> dict:
+    """The user-facing tools on the card, each through its script's entry
+    point: the 26-shape Taxim library, the follow-goal, rigid and FEM-gel
+    pick-up and ManiSkill-marker demos, a train -> play round trip and the
+    non-RL benchmark; K1 and K2 held to their plain versions and timed at
+    the demos' frames."""
+    t_phase = time.perf_counter()
+    out = _library_phase(device)
+    kernels = out.pop("kernels")
+
+    # follow-goal: the 320x240 sensor on 1 env every step
+    r, ms, launches = _counted(lambda: _tool("demos/follow_goal_torch.py")["run"](FOLLOW_GOAL_STEPS, 1 / 30, device))
+    _expect_launches("follow_goal_1", launches, FOLLOW_GOAL_STEPS)
+    errors, step_ms = r["errors"], 1e3 * r["seconds"] / FOLLOW_GOAL_STEPS
+    print(f"tools: follow_goal, {FOLLOW_GOAL_STEPS} steps of 4 IK iterations and one 320x240 sensor update: "
+          f"{step_ms:.3f} ms a step (the loop; the whole run with set-up {ms:.1f} ms); tracking error mean "
+          f"{errors.mean() * 1e3:.3f} mm, final {errors[-1] * 1e3:.3f} mm (limit {FOLLOW_GOAL_MAX_ERROR * 1e3} mm "
+          f"after step 10); {len(r['frames'])} in-contact frames, deepest {float(r['indentation'].max()):.3f} mm; "
+          f"launches {launches}")
+    if not (np.isfinite(errors).all() and errors[10:].mean() < FOLLOW_GOAL_MAX_ERROR and r["frames"]):
+        raise AssertionError("follow_goal: the arm does not track the goal onto the sphere")
+    out["follow_goal"] = dict(step_ms=step_ms, run_ms=ms, mean_error_mm=float(errors.mean() * 1e3),
+                              final_error_mm=float(errors[-1] * 1e3), launches=launches)
+    kernels.update(_tool_kernels(*_pressed_frame(1, device)))
+
+    # the rigid pick-up: 2 finger sensors, one update at the end of each phase
+    r, ms, launches = _counted(lambda: _tool("demos/pick_up/pick_up_rigid_torch.py")["run"](PICK_UP_RIGID_STEPS, device))
+    _expect_launches("pick_up_rigid_2", launches, 4)
+    step_ms = 1e3 * r["seconds"] / (4 * PICK_UP_RIGID_STEPS)
+    print(f"tools: pick_up_rigid, 4 x {PICK_UP_RIGID_STEPS} steps: {step_ms:.3f} ms a step (the loop; the whole "
+          f"run with set-up {ms:.1f} ms); ball lifted {r['lifted'] * 100:.2f} cm (limit {PICK_UP_RIGID_MIN_LIFT * 100:.0f} cm); grip "
+          f"{r['log'][-1]['grip']:.3f} N; launches {launches}")
+    if not r["lifted"] >= PICK_UP_RIGID_MIN_LIFT:
+        raise AssertionError(f"pick_up_rigid: the ball rose {r['lifted']} m")
+    out["pick_up_rigid"] = dict(step_ms=step_ms, run_ms=ms, lifted_m=r["lifted"], launches=launches)
+    kernels.update(_tool_kernels(*_pressed_frame(2, device)))
+
+    # the ManiSkill marker flow on the batched FEM gel (no kernel)
+    r, ms, launches = _counted(lambda: _tool("demos/check_mani_skill_marker_torch.py")["run"](MANI_SKILL_STEPS, device))
+    _expect_launches("check_mani_skill_marker", launches, 0)
+    final = r["flows"][-1]
+    disp = np.linalg.norm(final[:, 1] - final[:, 0], axis=-1)
+    step_ms = 1e3 * r["seconds"] / MANI_SKILL_STEPS
+    print(f"tools: check_mani_skill_marker, {MANI_SKILL_STEPS} steps of the 2-env FEM gel: "
+          f"{step_ms:.3f} ms a step (the loop; the whole run with set-up {ms:.1f} ms); mean marker displacement press {disp[0].mean():.3f} px, shear "
+          f"{disp[1].mean():.3f} px")
+    if not (np.isfinite(final).all() and disp[0].mean() > 0.5 and disp[1].mean() > 0.5):
+        raise AssertionError(f"check_mani_skill_marker: markers moved {disp.mean(-1)} px")
+    out["mani_skill_marker"] = dict(step_ms=step_ms, run_ms=ms, press_px=float(disp[0].mean()),
+                                    shear_px=float(disp[1].mean()))
+
+    # the FEM-gel pick-up, cut to PICK_UP_UIPC_STEPS a phase
+    r, ms, launches = _counted(lambda: _tool("demos/pick_up/pick_up_uipc_torch.py")["run"](PICK_UP_UIPC_STEPS, device))
+    _expect_launches("pick_up_uipc_2", launches, 4)
+    last, step_ms = r["log"][-1], 1e3 * r["seconds"] / (4 * PICK_UP_UIPC_STEPS)
+    # at 5 steps a phase the fingers stay ~0.36 m above the ball: the pads'
+    # indentation is the gels' own sag, and contact and lift are the
+    # demo's full 4 x 100 run's (PERF.md)
+    print(f"tools: pick_up_uipc, 4 x {PICK_UP_UIPC_STEPS} steps: {step_ms:.3f} ms a step (the loop; the whole run "
+          f"with set-up {ms:.1f} ms); ball z {last['ball_z']:.4f} m, grip {last['grip']:.3f} N (ball contact: "
+          f"{any(e['grip'] > 0 for e in r['log'])}), pad indentation {last['indent'].tolist()} mm; launches {launches}")
+    if not (bool(torch.isfinite(r["gel_x"]).all()) and all(np.isfinite(e["indent"]).all() for e in r["log"])):
+        raise AssertionError("pick_up_uipc: non-finite gel or tactile output")
+    out["pick_up_uipc"] = dict(step_ms=step_ms, run_ms=ms, steps_per_phase=PICK_UP_UIPC_STEPS,
+                               ball_z_m=last["ball_z"], launches=launches)
+
+    out["play"] = _play_round_trip(device, REPO / "build" / "chip_smoke_tools")
+
+    kpi, ms, launches = _counted(lambda: _tool("benchmarking/benchmark_non_rl_example_torch.py")["main"](
+        ["--num_envs", str(NON_RL_ENVS), "--num_frames", str(NON_RL_FRAMES), "--device", str(device)]))
+    _expect_launches("benchmark_non_rl", launches, NON_RL_FRAMES + 1)
+    out["non_rl"] = kpi
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"tools: the phase took {out['seconds']:.1f} s")
+    out["kernels"] = kernels
+    gc.collect()
+    return out
+
+
 def _state_to(state, device):
     """A copy of a port state on ``device``."""
     if dataclasses.is_dataclass(state):
@@ -1606,10 +1846,9 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    gpu = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
+    from tacex_tpu_torch.utils.profiling import device_label
+
+    gpu = device_label("cuda")
     print(gpu)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
@@ -1649,11 +1888,13 @@ def main() -> None:
     pole = pole_phase(device)
     sac = sac_phase(device)
     uipc = uipc_phase(device)
+    tools = tools_phase(device)
     coupled = coupled_phase(device)
 
     kernels.update(factory.pop("kernels"))
     kernels.update(uipc.pop("kernels"))
     kernels.update(coupled.pop("kernels"))
+    kernels.update(tools.pop("kernels"))
     sources = {
         "deformation_pyramid": ("tacex_tpu_torch/csrc/pyramid.cu", "tacex_tpu/ops/pallas_pyramid.py:61"),
         "lut_shade": ("tacex_tpu_torch/csrc/lut_shade.cu", "tacex_tpu/ops/pallas_lut.py:63"),
@@ -1674,6 +1915,14 @@ def main() -> None:
         ("deformation_pyramid", "pyramid global 480x640", "sensor_640x480_4", calib["launches"]),
         ("deformation_pyramid", "pyramid warp 32x32x32", "grasp_lift_tactile_step_16", coupled["launches"]),
         ("lut_shade", "lut full table 32x1024", "grasp_lift_tactile_step_16", coupled["launches"]),
+        ("deformation_pyramid", "pyramid cluster 26x240x320", "check_taxim_26", tools["launches"]),
+        ("lut_shade", "lut full table 26x76800", "check_taxim_26", tools["launches"]),
+        ("deformation_pyramid", "pyramid cluster 1x240x320", "follow_goal_1", tools["follow_goal"]["launches"]),
+        ("lut_shade", "lut full table 1x76800", "follow_goal_1", tools["follow_goal"]["launches"]),
+        ("deformation_pyramid", "pyramid cluster 2x240x320", "pick_up_rigid_2", tools["pick_up_rigid"]["launches"]),
+        ("lut_shade", "lut full table 2x76800", "pick_up_rigid_2", tools["pick_up_rigid"]["launches"]),
+        ("deformation_pyramid", "pyramid cluster 2x240x320", "pick_up_uipc_2", tools["pick_up_uipc"]["launches"]),
+        ("lut_shade", "lut full table 2x76800", "pick_up_uipc_2", tools["pick_up_uipc"]["launches"]),
     )
     report = {
         "kernels": [
@@ -1699,6 +1948,7 @@ def main() -> None:
         "sac": sac,
         "uipc": {k: v for k, v in uipc.items() if k != "launches"},
         "coupled": {k: v for k, v in coupled.items() if k != "launches"},
+        "tools": tools,
         "sensor_640x480_update_ms": calib["update_ms"],
     }
     print(json.dumps(report))

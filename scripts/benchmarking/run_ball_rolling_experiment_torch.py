@@ -28,7 +28,6 @@ from __future__ import annotations
 import argparse
 import json
 import platform
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -57,10 +56,9 @@ def motion_pattern(step: int) -> np.ndarray:
 def _card(device: torch.device) -> dict:
     if device.type != "cuda":
         return {"name": platform.processor() or platform.machine(), "nvidia_smi": None}
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    return {"name": torch.cuda.get_device_name(device),
-            "nvidia_smi": smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else None}
+    from tacex_tpu_torch.utils.profiling import device_label
+
+    return {"name": torch.cuda.get_device_name(device), "nvidia_smi": device_label(device)}
 
 
 def run(env_variant: str, num_envs: int, steps: int, device="cuda") -> dict:

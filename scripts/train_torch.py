@@ -3,10 +3,14 @@
 The port's counterpart of ``scripts/train.py``: the env and the trainer run
 on one CUDA device (``--device cpu`` runs them on the CPU). It prints one
 JSON line per logged iteration, writes ``config.json`` and ``metrics.jsonl``
-into ``--checkpoint_dir`` and saves the policy's ``state_dict`` there with
-``torch.save`` (PPO's actor-critic, SAC's actor; the last three checkpoints
-are kept). ``--rollouts`` sets PPO's rollout length or SAC's env steps per
-iteration.
+into the run folder (``--viz_dir``, else ``--checkpoint_dir``) and saves the
+policy's ``state_dict`` into ``--checkpoint_dir`` as ``ckpt_<iteration>.pt``
+with ``torch.save`` (PPO's actor-critic, SAC's actor; the last three
+checkpoints are kept; ``scripts/play_torch.py`` plays PPO's back).
+``--viz_dir`` also gets the dashboard ``metrics.png`` (``metrics_panels.txt``
+names its panels) and the strip of env 0's vision observations
+``tactile_obs_strip.png``, every ``--viz_interval`` iterations and at the end.
+``--rollouts`` sets PPO's rollout length or SAC's env steps per iteration.
 
 Usage:
   python scripts/train_torch.py --task TacEx-Ball-Rolling-Taxim-Fots-v0 \\
@@ -18,7 +22,6 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import ast
 import json
 import sys
 import time
@@ -29,19 +32,21 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # repo root, so th
 KEEP_CHECKPOINTS = 3
 
 
-def _parse_kv(pairs: list[str]) -> dict:
-    out = {}
-    for kv in pairs:
-        k, v = kv.split("=", 1)
-        try:
-            v = ast.literal_eval(v)
-        except (ValueError, SyntaxError):
-            pass  # keep as string
-        out[k] = v
-    return out
+def _grab_tactile_frame(viz, obs) -> None:
+    """Env 0's vision observation, min-max normalised to [0, 1] as one RGB
+    frame (its first three channels, or its first repeated), into the
+    ``tactile_obs`` strip; a read-back of one image."""
+    v = obs.get("vision_obs") if isinstance(obs, dict) else None
+    if v is None:
+        return
+    f = v[0].detach().double().cpu().numpy()  # (h, w, c)
+    f = f[..., :3] if f.shape[-1] >= 3 else f[..., :1].repeat(3, -1)
+    lo, hi = f.min(), f.max()
+    viz.add_frame("tactile_obs", (f - lo) / max(hi - lo, 1e-6))
 
 
-def main(argv: list[str] | None = None) -> None:
+def main(argv: list[str] | None = None):
+    """Train; returns the trainer (``PPO`` or ``SAC``)."""
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--task", default="TacEx-Ball-Rolling-Taxim-Fots-v0")
     p.add_argument("--algorithm", choices=["ppo", "sac"], default="ppo")
@@ -53,6 +58,9 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--checkpoint_dir", default=None)
     p.add_argument("--checkpoint_interval", type=int, default=50)
     p.add_argument("--log_interval", type=int, default=1)
+    p.add_argument("--viz_dir", default=None, help="write metric plots and a vision-obs strip (LiveVisualizer)")
+    p.add_argument("--viz_interval", type=int, default=50,
+                   help="refresh the metrics png + tactile-obs frame strip every N iterations")
     p.add_argument("--env_cfg", action="append", default=[], metavar="KEY=VALUE",
                    help="env config override, e.g. --env_cfg episode_length_s=6.0 (repeatable; Python literals)")
     p.add_argument("--agent_cfg", action="append", default=[], metavar="KEY=VALUE",
@@ -62,22 +70,25 @@ def main(argv: list[str] | None = None) -> None:
     import torch
 
     from tacex_tpu_torch import envs
+    from tacex_tpu_torch.core.config import parse_overrides
     from tacex_tpu_torch.rl import PPO, SAC
     from tacex_tpu_torch.rl.agents import agent_cfg_for
+    from tacex_tpu_torch.utils import LiveVisualizer
 
-    env_overrides = _parse_kv(args.env_cfg)
+    env_overrides = parse_overrides(args.env_cfg)
     env = envs.make(args.task, num_envs=args.num_envs, device=args.device, **env_overrides)
     if args.algorithm == "sac":
-        cfg = agent_cfg_for(args.task, "sac", rollout_steps=args.rollouts, **_parse_kv(args.agent_cfg))
+        cfg = agent_cfg_for(args.task, "sac", rollout_steps=args.rollouts, **parse_overrides(args.agent_cfg))
         trainer, steps_per_iter = SAC(env, cfg), args.num_envs * cfg.rollout_steps
     else:
-        cfg = agent_cfg_for(args.task, "ppo", rollouts=args.rollouts, **_parse_kv(args.agent_cfg))
+        cfg = agent_cfg_for(args.task, "ppo", rollouts=args.rollouts, **parse_overrides(args.agent_cfg))
         trainer, steps_per_iter = PPO(env, cfg), args.num_envs * cfg.rollouts
     print(f"agent cfg ({args.algorithm}): {cfg}")
     trainer.init(args.seed)
     policy = trainer.actor if args.algorithm == "sac" else trainer.net
 
-    run_dir = Path(args.checkpoint_dir).absolute() if args.checkpoint_dir else None
+    ckpt_dir = Path(args.checkpoint_dir).absolute() if args.checkpoint_dir else None
+    run_dir = Path(args.viz_dir).absolute() if args.viz_dir else ckpt_dir
     metrics_fp = None
     if run_dir is not None:
         run_dir.mkdir(parents=True, exist_ok=True)
@@ -85,6 +96,9 @@ def main(argv: list[str] | None = None) -> None:
         with open(run_dir / "config.json", "w") as f:
             json.dump({"argv": vars(args), "env_overrides": env_overrides, "agent_cfg": str(cfg)}, f, indent=1, default=str)
         metrics_fp = open(run_dir / "metrics.jsonl", "a")
+    if ckpt_dir is not None:
+        ckpt_dir.mkdir(parents=True, exist_ok=True)
+    viz = LiveVisualizer(args.viz_dir) if args.viz_dir else None
 
     saved: list[Path] = []
     t_start = time.time()
@@ -106,8 +120,14 @@ def main(argv: list[str] | None = None) -> None:
                 if metrics_fp is not None:
                     metrics_fp.write(json.dumps(line) + "\n")
                     metrics_fp.flush()
-            if run_dir is not None and (it + 1) % args.checkpoint_interval == 0:
-                path = run_dir / f"ckpt_{it}.pt"
+            if viz is not None:
+                viz.add_scalars(trainer.steps, metrics)
+                if (it + 1) % args.viz_interval == 0 or it + 1 == args.iterations:
+                    _grab_tactile_frame(viz, getattr(trainer, "obs", None))
+                    viz.save_plots()
+                    viz.save_frame_strip("tactile_obs")
+            if ckpt_dir is not None and (it + 1) % args.checkpoint_interval == 0:
+                path = ckpt_dir / f"ckpt_{it}.pt"
                 torch.save(policy.state_dict(), path)
                 saved.append(path)
                 for old in saved[:-KEEP_CHECKPOINTS]:
@@ -116,9 +136,12 @@ def main(argv: list[str] | None = None) -> None:
     finally:
         if metrics_fp is not None:
             metrics_fp.close()
+    if viz is not None:
+        print(f"metric plots -> {viz.save_plots()}")
     if metrics_fp is not None:
         print(f"metrics jsonl -> {run_dir / 'metrics.jsonl'}")
     print(f"done: {trainer.steps} env steps in {time.time() - t_start:.1f}s")
+    return trainer
 
 
 if __name__ == "__main__":

@@ -19,7 +19,10 @@ Layers, from the trainer down (``rl.PPO(envs.make("TacEx-Ball-Rolling-Taxim-Fots
   ops            — the two kernels' wrappers, blurs, resizes, signed-distance functions
   render         — analytic orthographic depth camera, triangle-mesh rasterizer
   sensors        — GelSight: Taxim optical (pyramid kernel, LUT-shade kernel), FOTS markers,
-                   FEM marker flow
+                   FEM marker flow and its ManiSkillSimulator facade
+  assets         — procedural meshes, the analytic indenter shapes, the robot presets
+  utils          — Timer and torch.profiler traces, the training dashboard, PNG output
+                   (the scripts' tools: scripts/*_torch.py, scripts/demos/*_torch.py)
 """
 
 __version__ = "0.1.0"

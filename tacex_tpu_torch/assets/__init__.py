@@ -1,1 +1,4 @@
-"""Procedural triangle meshes (a copy of the JAX package's numpy-only ``assets/meshes.py``)."""
+"""Asset libraries (numpy copies of the JAX package's): procedural triangle
+meshes, the analytic indenter shapes and the robot presets."""
+
+from . import meshes, robots, shapes  # noqa: F401

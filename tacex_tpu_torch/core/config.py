@@ -13,6 +13,7 @@ whose mutable defaults are deep-copied per instance, nested-config aware
 
 from __future__ import annotations
 
+import ast
 import copy
 import dataclasses
 from typing import Any, TypeVar
@@ -111,3 +112,17 @@ def update_recursive(default: dict, update: dict | None) -> dict:
         )
         for k in default
     }
+
+
+def parse_overrides(pairs: list[str]) -> dict[str, Any]:
+    """``KEY=VALUE`` command-line overrides as a dict; each value is read as
+    a Python literal where it is one, else kept as a string."""
+    out = {}
+    for kv in pairs:
+        k, v = kv.split("=", 1)
+        try:
+            v = ast.literal_eval(v)
+        except (ValueError, SyntaxError):
+            pass  # keep as string
+        out[k] = v
+    return out

@@ -68,12 +68,25 @@ def register(env_id: str, env_class: type, default_cfg_factory: Callable[[], Dir
     _REGISTRY[env_id] = (env_class, default_cfg_factory)
 
 
-def make(env_id: str, cfg: DirectRLEnvCfg | None = None, device=DEFAULT_DEVICE, **overrides) -> DirectRLEnv:
+def _entry(env_id: str) -> tuple[type, Any]:
     if env_id not in _REGISTRY:
         raise KeyError(f"Unknown env id '{env_id}'. Registered: {sorted(_REGISTRY)}")
-    env_class, cfg_factory = _REGISTRY[env_id]
-    cfg = cfg if cfg is not None else cfg_factory()
+    return _REGISTRY[env_id]
+
+
+def default_cfg(env_id: str) -> DirectRLEnvCfg:
+    """The registered default config of ``env_id``."""
+    return _entry(env_id)[1]()
+
+
+def make(env_id: str, cfg: DirectRLEnvCfg | None = None, device=DEFAULT_DEVICE, **overrides) -> DirectRLEnv:
+    env_class = _entry(env_id)[0]
+    cfg = cfg if cfg is not None else default_cfg(env_id)
     if overrides:
         cfg = cfg.replace(**overrides)
     return env_class(cfg, device=device)
 
+
+def registered_envs() -> list[str]:
+    """The registered env ids, sorted."""
+    return sorted(_REGISTRY)

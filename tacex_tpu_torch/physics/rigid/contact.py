@@ -55,8 +55,13 @@ def _resolve_contact(
     dt: float,
     baumgarte: float = 0.2,
     slop: float = 1e-5,
+    lock_rotation: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(d_lin_vel, d_ang_vel) impulse response for one contact set."""
+    """(d_lin_vel, d_ang_vel) impulse response for one contact set.
+
+    ``lock_rotation=True`` treats the friction as purely translational
+    (k_t = 1/m, no angular response): the model of an opposing-pinch grasp,
+    where the other finger's contact locks the sphere's spin."""
     active = depth > 0.0
 
     v_point = lin_vel + maths.cross(ang_vel, r_vec)
@@ -74,14 +79,14 @@ def _resolve_contact(
     vt = v_rel - vn[..., None] * normal
     vt_norm = torch.linalg.vector_norm(vt, dim=-1)
     t_dir = vt / vt_norm.clamp_min(1e-9)[..., None]
-    k_t = inv_m + (params.radius**2) * inv_i
+    k_t = inv_m if lock_rotation else inv_m + (params.radius**2) * inv_i
     jt_needed = vt_norm / k_t
     jt = torch.minimum(jt_needed, params.friction * jn)
     jt = torch.where(active, jt, 0.0)
 
     imp = jn[..., None] * normal - jt[..., None] * t_dir
     d_lin = imp * _col(inv_m)
-    ang_imp = jn[..., None] * normal - 1.0 * jt[..., None] * t_dir
+    ang_imp = jn[..., None] * normal - (0.0 if lock_rotation else 1.0) * jt[..., None] * t_dir
     d_ang = maths.cross(r_vec, ang_imp) * _col(inv_i)
     return d_lin, d_ang
 
@@ -125,11 +130,13 @@ def sphere_box_contact(
     params: SphereParams,
     dt: float,
     stiffness_scale: float = 1.0,
+    lock_rotation: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Sphere vs kinematic oriented box (the gel pad pressing a ball).
 
     ``stiffness_scale`` < 1 softens the positional correction, approximating
-    gel compliance."""
+    gel compliance; ``lock_rotation``: see ``_resolve_contact`` (opposing-pinch
+    grasps)."""
     cp = closest_point_on_box(pos, box_pos, box_quat, half_extents)
     delta = pos - cp
     dist = torch.linalg.vector_norm(delta, dim=-1)
@@ -148,4 +155,5 @@ def sphere_box_contact(
     r_vec = -params.radius * normal
     return _resolve_contact(
         lin_vel, ang_vel, normal, depth, box_vel, r_vec, params, dt, baumgarte=0.2 * stiffness_scale,
+        lock_rotation=lock_rotation,
     )

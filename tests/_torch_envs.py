@@ -20,10 +20,15 @@ N = 4
 @functools.lru_cache(maxsize=None)
 def pair(env_id, **kw):
     """(JAX env, port env, the JAX env's post-reset state) at ``N`` envs with
-    no noise and no domain randomization; one jit of ``reset_all`` per id."""
+    no noise and no domain randomization.
+
+    The JAX side runs eagerly (``reset_all`` here, ``step`` in
+    ``assert_one_step_matches_jax``): op by op, a process compiles each
+    primitive once for all ids, where a jit of an id's reset or step costs
+    5-10 s on the CPU and is not shared between ids."""
     env_j = jenvs.make(env_id, **_overrides(), **kw)
     env_t = tenvs.make(env_id, device="cpu", **_overrides(), **kw)
-    st_j, _ = jax.jit(env_j.reset_all)(env_j.init_state(jax.random.PRNGKey(0)))
+    st_j, _ = env_j.reset_all(env_j.init_state(jax.random.PRNGKey(0)))
     return env_j, env_t, st_j
 
 
@@ -50,7 +55,7 @@ def assert_one_step_matches_jax(env_id) -> None:
     st_t = state_from_numpy(_tree_to_numpy(st_j), device="cpu")
     assert st_t.actions.shape == (N, env_j.cfg.action_space)
     a = action(env_j)
-    st_j, obs_j, rew_j, term_j, trunc_j, info_j = jax.jit(env_j.step)(st_j, jnp.asarray(a))
+    st_j, obs_j, rew_j, term_j, trunc_j, info_j = env_j.step(st_j, jnp.asarray(a))
     st_t, obs_t, rew_t, term_t, trunc_t, info_t = env_t.step(st_t, torch.from_numpy(a))
     np.testing.assert_array_equal(term_t.numpy(), np.asarray(term_j))
     np.testing.assert_array_equal(trunc_t.numpy(), np.asarray(trunc_j))
@@ -81,6 +86,6 @@ def assert_one_step_matches_jax(env_id) -> None:
         calib = env_t.sensor.calib
         nb = calib.sensor_params.num_bins
         spread = lut_spread(calib.poly_lut.numpy(), calib.features.numpy(), nb)
-        gm_j, gd_j = jax.jit(lambda s: _jax_gradients(env_j, s))(st_j)
+        gm_j, gd_j = _jax_gradients(env_j, st_j)
         held = assert_bin_rule(obs_t["vision_obs"], obs_j["vision_obs"], gm_j, gd_j, nb, spread, edge_bins=0.05)
         assert held > 0.2

@@ -30,8 +30,10 @@ from tacex_tpu_torch.physics.soft.ipc import RigidSdfScene, SoftBodyModel, SoftB
 from tacex_tpu_torch.physics.soft.mesh import box_tet_mesh
 from tacex_tpu_torch.rl.networks import ActorCritic, VisionEncoder
 from tacex_tpu_torch.sensors.gelsight.fem import FemMarkerFlow, ManiSkillSimulatorCfg
+from tacex_tpu_torch.sensors.gelsight.fem.mani_skill_sim import ManiSkillSimulator
 from tacex_tpu_torch.sensors.gelsight.sensor import GelSightSensor
 from tacex_tpu_torch.sensors.gelsight.sensor_cfg import gelsight_mini_cfg
+from tacex_tpu_torch.utils import trace
 
 ENV_ID = "TacEx-Ball-Rolling-Taxim-Fots-v0"
 
@@ -56,6 +58,8 @@ ENTRY_POINTS = {
     "FactoryUipcEnv": FactoryUipcEnv,
     "AbdModel": AbdModel,
     "AbdState.identity": AbdState.identity,
+    "ManiSkillSimulator": ManiSkillSimulator,
+    "utils.trace": trace,
 }
 COUPLED_IDS = [
     "TacEx-Grasp-Lift-Uipc-v0",
@@ -194,3 +198,50 @@ def test_affine_body_without_a_card_raises(no_card):
                   lambda: AbdState.identity(2, 1)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
+
+
+def test_mani_skill_simulator_and_trace_without_a_card_raise(no_card, tmp_path):
+    mesh = box_tet_mesh((0.018, 0.014, 0.004), (8, 7, 2), center=(0.0, 0.0, -0.002))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ManiSkillSimulator(ManiSkillSimulatorCfg(), mesh)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        with trace(tmp_path / "tr"):
+            pass
+    assert not (tmp_path / "tr").exists()
+    assert ManiSkillSimulator(ManiSkillSimulatorCfg(), mesh, device="cpu").device.type == "cpu"
+
+
+# each user-facing script of the slice, and arguments that keep a run on a
+# card small; without a card each raises before it computes or writes anything
+SCRIPTS = {
+    "play_torch.py": ["--num_envs", "2", "--steps", "1"],
+    "list_envs_torch.py": [],
+    "demos/check_taxim_sim_torch.py": ["--res", "24", "32"],
+    "demos/check_fots_sim_torch.py": [],
+    "demos/run_shape_touch_torch.py": ["--res", "24", "32"],
+    "demos/follow_goal_torch.py": ["--steps", "1"],
+    "demos/check_mani_skill_marker_torch.py": ["--steps", "1"],
+    "demos/pick_up/pick_up_rigid_torch.py": ["--steps_per_phase", "1"],
+    "demos/pick_up/pick_up_uipc_torch.py": ["--steps_per_phase", "1"],
+    "benchmarking/benchmark_non_rl_example_torch.py": ["--num_envs", "2", "--num_frames", "1"],
+    "benchmarking/benchmark_embedded_gel_torch.py": ["--envs", "2", "--steps", "1", "--skip_dense"],
+}
+
+
+@pytest.mark.parametrize("script", sorted(SCRIPTS))
+def test_scripts_default_to_the_card(no_card, script, tmp_path):
+    """``--device`` defaults to ``cuda``; without a card the script raises
+    instead of running on the CPU, and writes nothing."""
+    import runpy
+
+    path = Path(__file__).resolve().parents[1] / "scripts" / script
+    assert '"--device", default="cuda"' in path.read_text()
+    text = path.read_text()
+    argv = list(SCRIPTS[script])
+    if '"--out",' in text:
+        argv += ["--out", str(tmp_path / "out.png")]
+    if '"--out_dir",' in text:
+        argv += ["--out_dir", str(tmp_path / "out")]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runpy.run_path(str(path))["main"](argv)
+    assert list(tmp_path.iterdir()) == []

@@ -63,7 +63,7 @@ def test_step_physics_only_matches_jax():
     env_j, env_t, st_j = pair(PRIVILEGED)
     st_t = state_from_numpy(_tree_to_numpy(st_j), device="cpu")
     a = action(env_j)
-    st_j = jax.jit(env_j.step_physics_only)(st_j, jnp.asarray(a))
+    st_j = env_j.step_physics_only(st_j, jnp.asarray(a))
     before = st_t
     st_t = env_t.step_physics_only(st_t, torch.from_numpy(a))
     compare_state(st_t, st_j)

@@ -2,6 +2,7 @@
 kernel build refuses to run without nvcc instead of falling back."""
 
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -65,6 +66,42 @@ SLICE_MODULES = [
     "tacex_tpu_torch.envs.grasp_lift",
     "tacex_tpu_torch.envs.factory.env_uipc",
 ]
+# the modules of the user-facing tools
+TOOL_MODULES = [
+    "tacex_tpu_torch.utils.png",
+    "tacex_tpu_torch.utils.visualizer",
+    "tacex_tpu_torch.utils.profiling",
+    "tacex_tpu_torch.utils",
+    "tacex_tpu_torch.assets.shapes",
+    "tacex_tpu_torch.assets.robots",
+    "tacex_tpu_torch.assets",
+    "tacex_tpu_torch.sensors.gelsight.fem.mani_skill_sim",
+]
+SLICE_MODULES += TOOL_MODULES
+# the slice's scripts, under scripts/
+TOOL_SCRIPTS = [
+    "train_torch.py",
+    "play_torch.py",
+    "list_envs_torch.py",
+    "demos/check_taxim_sim_torch.py",
+    "demos/check_fots_sim_torch.py",
+    "demos/run_shape_touch_torch.py",
+    "demos/follow_goal_torch.py",
+    "demos/check_mani_skill_marker_torch.py",
+    "demos/pick_up/pick_up_rigid_torch.py",
+    "demos/pick_up/pick_up_uipc_torch.py",
+    "benchmarking/benchmark_non_rl_example_torch.py",
+    "benchmarking/benchmark_embedded_gel_torch.py",
+]
+# a meta-path finder that makes importing any of these packages raise
+BLOCKER = (
+    "import sys\n"
+    "class _Block:\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tacex_tpu', 'PIL', 'matplotlib'):\n"
+    "            raise ImportError(f'{name} is blocked')\n"
+    "sys.meta_path.insert(0, _Block())\n"
+)
 COUPLED_IDS = (
     "TacEx-Grasp-Lift-Uipc-v0",
     "TacEx-Grasp-Lift-Uipc-Depth-v0",
@@ -72,6 +109,15 @@ COUPLED_IDS = (
     "TacEx-Factory-PegInsert-Uipc-v0",
     "TacEx-Factory-PegInsert-Uipc-Depth-v0",
 )
+
+
+def _python(code: str) -> subprocess.CompletedProcess:
+    """Run ``code`` in a fresh interpreter at the repo root. Its PyTorch takes
+    two threads, as the test processes do (``_torch_bins.setup_torch``): with
+    one a core it would crowd the other test workers' cores."""
+    env = {**os.environ, "OMP_NUM_THREADS": "2"}
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=120)
 
 
 def test_import_loads_no_jax():
@@ -89,7 +135,7 @@ def test_import_loads_no_jax():
         "assert not bad, bad\n"
         "print('ok')\n"
     )
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    out = _python(code)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
 
@@ -110,7 +156,7 @@ def test_coupled_step_loads_no_jax():
         "assert not bad, bad\n"
         "print('ok')\n"
     )
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    out = _python(code)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
 
@@ -127,7 +173,7 @@ def test_train_script_loads_no_jax(tmp_path):
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'tacex_tpu'))\n"
         "assert not bad, bad\n"
     )
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    out = _python(code)
     assert out.returncode == 0, out.stderr
     lines = [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
     assert [line["iter"] for line in lines] == [0, 1] and lines[-1]["env_steps"] == 2 * 4 * 4
@@ -149,13 +195,43 @@ def test_experiment_harness_loads_no_jax(tmp_path):
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'tacex_tpu'))\n"
         "assert not bad, bad\n"
     )
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    out = _python(code)
     assert out.returncode == 0, out.stderr
     report = json.loads(out_file.read_text())
     assert report["env_id"] == "TacEx-Ball-Rolling-Tactile-RGB-Uipc-v0" and report["total_frames"] == 4
     # the two timings are separate runs of the same physics: on a CPU either may be the longer
     assert report["avg_ms_per_step"] > 0.0 and report["avg_physics_ms_per_step"] > 0.0
     assert report["avg_tactile_ms_per_step"] >= 0.0 and report["system"]["device"] == "cpu"
+
+
+def test_tools_run_with_jax_pil_and_matplotlib_blocked(tmp_path):
+    """With importing jax, the JAX package, PIL and matplotlib made to raise:
+    the new modules import, every script of the slice prints its ``--help``,
+    and the Taxim demo and the dashboard write their PNGs on the CPU."""
+    code = BLOCKER + (
+        "import contextlib, importlib, io, runpy\n"
+        f"for m in {TOOL_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"for script in {TOOL_SCRIPTS!r}:\n"
+        "    buf = io.StringIO()\n"
+        "    with contextlib.redirect_stdout(buf):\n"
+        "        try:\n"
+        "            runpy.run_path('scripts/' + script)['main'](['--help'])\n"
+        "        except SystemExit as e:\n"
+        "            assert e.code == 0, (script, e.code)\n"
+        "    assert '--device' in buf.getvalue(), script\n"
+        "runpy.run_path('scripts/demos/check_taxim_sim_torch.py')['main']("
+        f"['--res', '24', '32', '--device', 'cpu', '--out', {str(tmp_path / 'shapes.png')!r}])\n"
+        "from tacex_tpu_torch.utils import LiveVisualizer\n"
+        f"v = LiveVisualizer({str(tmp_path / 'viz')!r})\n"
+        "v.add_scalars(0, {'a': 1.0}); v.add_scalars(1, {'a': 2.0}); v.add_frame('f', [[0.5]])\n"
+        "v.save_plots(); v.save_frame_strip('f')\n"
+        "print('ok')\n"
+    )
+    out = _python(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+    assert sorted(p.name for p in tmp_path.rglob("*.png")) == ["f_strip.png", "metrics.png", "shapes.png"]
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -136,6 +136,24 @@ class TestContact:
             close(a, b, atol=ATOL * max(1.0, float(np.abs(np.asarray(b)).max())))
         close(tc.closest_point_on_box(T(pos), T(bp), T(bq), T(half)), jc.closest_point_on_box(J(pos), J(bp), J(bq), J(half)))
 
+    def test_sphere_box_lock_rotation(self):
+        """The opposing-pinch model (k_t = 1/m, no angular friction impulse)
+        against JAX's, and apart from the free sphere's response."""
+        pos, lin, ang, bp, bq, bv, mass, fric, rest = self._case()
+        half = np.array([0.0104, 0.0126, 0.00225], np.float32)
+        p_j = jc.SphereParams(radius=0.005, mass=J(mass), restitution=J(rest), friction=J(fric))
+        p_t = tc.SphereParams(radius=0.005, mass=T(mass), restitution=T(rest), friction=T(fric))
+        dt = 1.0 / 240.0
+        box_j = jax.jit(lambda *a: jc.sphere_box_contact(*a, p_j, dt, stiffness_scale=0.35, lock_rotation=True))
+        out_j = box_j(J(pos), J(lin), J(ang), J(bp), J(bq), J(bv), J(half))
+        args_t = (T(pos), T(lin), T(ang), T(bp), T(bq), T(bv), T(half), p_t, dt)
+        out_t = tc.sphere_box_contact(*args_t, stiffness_scale=0.35, lock_rotation=True)
+        for a, b in zip(out_t, out_j):
+            close(a, b, atol=ATOL * max(1.0, float(np.abs(np.asarray(b)).max())))
+        free_t = tc.sphere_box_contact(*args_t, stiffness_scale=0.35)
+        for locked, free in zip(out_t, free_t):
+            assert (locked - free).abs().max() > 1e3 * ATOL * max(1.0, float(free.abs().max()))
+
 
 def test_render_depth_batch():
     rng = np.random.default_rng(4)
