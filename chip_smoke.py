@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port once on one NVIDIA GPU: the flagship env step,
 PPO training on it, the other ball-rolling tasks, every shading path, the
 Factory tasks, pole balancing, SAC, the soft FEM gel pad of the UIPC
-ball-rolling tasks, the user-facing tools and demos, and the coupled FEM+ABD
-world of the Grasp-Lift and Factory-UIPC tasks.
+ball-rolling tasks, the user-facing tools and demos, the coupled FEM+ABD
+world of the Grasp-Lift and Factory-UIPC tasks, and the UIPC scene API.
 
     python3 chip_smoke.py
 
@@ -88,7 +88,7 @@ package beside this file; it imports nothing of JAX. In order it:
      plain version and timed ("pyramid global 480x640");
  17. the coupled FEM+ABD world: ``TacEx-Grasp-Lift-Uipc-Tactile-v0`` at its
      registered 16 envs from a pressed start (each pad 0.6 mm toward the
-     cube): a warm step, 3 steps under sync-debug "error" with K1 and K2
+     cube): a warm step, 2 steps under sync-debug "error" with K1 and K2
      launched once a step on the 2N = 32 pad images of 32x32; prints ms a
      step, torch.profiler's device activities and device time of one step,
      one coupled solve alone and peak memory; holds K1 (warp design,
@@ -98,7 +98,7 @@ package beside this file; it imports nothing of JAX. In order it:
      8 CG (gel, cube q, reward, grip, and the tactile image of the CPU's gel
      under the bin rule; at the registered iterations it prints how far a
      2e-9 m jolt of the gel moves the CPU's own step); the scripted
-     squeeze of ``-Uipc-v0`` (action [1, 0], 5 steps: the cube must stay
+     squeeze of ``-Uipc-v0`` (action [1, 0], 3 steps: the cube must stay
      above -3 mm); and 1 step each of ``-Uipc-Depth-v0`` and both
      Factory-UIPC ids under sync-debug "error";
  18. (before step 17) the user-facing tools, each through its script's entry
@@ -115,9 +115,24 @@ package beside this file; it imports nothing of JAX. In order it:
      1e-6); ``benchmark_non_rl_example_torch`` at its 64 envs and 100
      frames; and K1 and K2 held to their plain versions and timed on the
      library's (26, 240, 320) frame and on the pressed sphere's 1- and 2-image
-     frames (the follow-goal and pick-up demos' shapes).
+     frames (the follow-goal and pick-up demos' shapes);
+ 19. (last) the UIPC scene API, which launches neither kernel: the six
+     example scripts through ``main(argv)`` at their own envs and meshes,
+     cut to 3 steps (2 for ``grasp_lift``; ``floating_cube`` ends with
+     ``check_health``), with ms a step and finite positions; the union of
+     two ``TetMeshCfg()`` gel pads (396 vertices each) with self and
+     edge-edge contact at K = 4 at 16 envs, the top pad driven down onto
+     the bottom one by its attachment: a warm step, 4 steps under
+     sync-debug "error" with the kernel counters at 0, ms a step and a
+     solve, torch.profiler's device activities and busy share of one more
+     step, peak memory, the broad-phase counts, the bottom pad pushed and
+     no interpenetration, and envs 0-1 carried to the CPU for one step
+     (atol 1.5e-5 m); ``save_frame``/``replay_frame`` after a later step
+     and write; ``step_n(4)`` against 4 ``step``s within 1e-6 (in
+     deterministic mode); and ``ccd_envelope_torch``'s ``run`` at 0.8 m/s
+     (caught) and 1.6 m/s (tunnels) at dt 1/60.
 
-The second-to-last line is a JSON object with a row per kernel and shape:
+Each phase prints its seconds. The second-to-last line is a JSON object with a row per kernel and shape:
 its launches on the main path that runs it at that shape, its error against
 the plain version, its times, bound and share of the bound, and the library
 call's time; then each phase's numbers. The last line is ``{"ok": true,
@@ -176,9 +191,9 @@ COUPLED_PRESS = 6e-4
 # the card-against-CPU check's iterations: the parity tests' (tests/_torch_coupled.py)
 REF_NEWTON_ITERS = 2
 REF_CG_ITERS = 8
-COUPLED_STEPS = 3
+COUPLED_STEPS = 2  # few: a step takes 12-20 s, and the whole run stays under 900 s
 COUPLED_OTHER_STEPS = 1
-SQUEEZE_STEPS = 5
+SQUEEZE_STEPS = 3  # as COUPLED_STEPS
 CALIB_ENVS = 4
 # the tools phase: the scripts' own default sizes (scripts/demos, scripts/benchmarking)
 TOOLS_RES = (240, 320)
@@ -194,6 +209,20 @@ PLAY_STEPS = 20
 NON_RL_ENVS = 64
 NON_RL_FRAMES = 100
 TOOLS_CPU_SHAPES = 2  # the library shapes also rendered on the CPU
+UIPC_API_ENVS = 16  # the UIPC ids' registered count
+UIPC_API_STEPS = 5
+UIPC_API_DROP = 4e-4  # m a step, the top pad's attachment
+UIPC_API_REF_AFTER = 3  # the card's step after which 2 envs are carried to the CPU for one step
+UIPC_API_ATOL = 1.5e-5  # m: two f32 solves of one step (tests/_torch_uipc_api.py)
+UIPC_EXAMPLES = {  # script -> steps in the phase (the scripts' own: 90, 150, 120, 60, 40, 130; ~2 s a step)
+    "examples/libuipc_samples/hello_uipc_torch.py": 3,
+    "examples/libuipc_samples/floating_cube_torch.py": 3,
+    "examples/libuipc_samples/periodically_pressed_tetrahedron_torch.py": 3,
+    "examples/falling_gel_cubes_torch.py": 3,
+    "examples/single_uipc_attachment_torch.py": 3,
+    "examples/grasp_lift_torch.py": 2,
+}
+STEP_N_STEPS = 4
 WARMUP_STEPS = 2
 STEPS = 10
 KERNEL_ATOL = 1e-5
@@ -1837,6 +1866,202 @@ def _state_to(state, device):
     return state.to(device)
 
 
+def uipc_union_scene(device, n: int):
+    """The full-width union scene of the UIPC scene API: two ``TetMeshCfg()``
+    gel pads (20 x 25 x 4.5 mm at (8, 10, 3) cells, 396 vertices each) at
+    the UIPC ids' solver settings (dt 1/60, 4 Newton x 16 CG x 8 line-search
+    trials, d_hat 0.5 mm, kappa 2e4) with self and edge-edge contact at
+    K = 4 and no gravity: the bottom pad held by its bottom face, the top
+    one 0.6 mm above it (0.3 / 0.2 mm off in x / y, clear of the exactly
+    aligned grids) driven down by its top-face attachment, ``drop["d"]``
+    times 0.8-1.2 (env by env) below its rest. Returns (sim, bottom, top,
+    drop)."""
+    from tacex_tpu_torch.uipc import StableNeoHookeanCfg, UipcObject, UipcObjectCfg, UipcSim, UipcSimCfg
+    from tacex_tpu_torch.uipc.objects import TetMeshCfg
+
+    cfg = UipcSimCfg(num_envs=n, dt=1 / 60, gravity=(0.0, 0.0, 0.0), newton=UipcSimCfg.Newton(max_iter=4),
+                     linear_system=UipcSimCfg.LinearSystem(max_iter=16),
+                     contact=UipcSimCfg.Contact(d_hat=5e-4, resistance=2e4, self_contact_k=4, ee_contact_k=4))
+    sim = UipcSim(cfg, device=device)
+    h = TetMeshCfg().size[2]
+    bottom = UipcObject(UipcObjectCfg(mesh_cfg=TetMeshCfg(center=(0.0, 0.0, 0.0)), constitution=StableNeoHookeanCfg()),
+                        sim)
+    top = UipcObject(UipcObjectCfg(mesh_cfg=TetMeshCfg(center=(3e-4, 2e-4, h + 6e-4)),
+                                   constitution=StableNeoHookeanCfg()), sim)
+    z_b, z_t = bottom.mesh.points[:, 2], top.mesh.points[:, 2]
+    bot_ids = np.where(z_b < z_b.min() + 1e-6)[0]
+    top_ids = np.where(z_t > z_t.max() - 1e-6)[0]
+    dev = sim.device
+    rest_b = torch.as_tensor(bottom.mesh.points[bot_ids], device=dev).expand(n, len(bot_ids), 3)
+    rest_t = torch.as_tensor(top.mesh.points[top_ids], device=dev).expand(n, len(top_ids), 3)
+    down = torch.as_tensor(np.linspace(0.8, 1.2, UIPC_API_ENVS, dtype=np.float32)[:n], device=dev).view(n, 1, 1) * \
+        torch.tensor([0.0, 0.0, -1.0], device=dev)
+    drop = {"d": 0.0}
+    bottom.set_attachments(bot_ids, aim_provider=lambda: rest_b)
+    top.set_attachments(top_ids, aim_provider=lambda: rest_t + drop["d"] * down)
+    sim.setup_sim()
+    return sim, bottom, top, drop
+
+
+def _union_reference(sim, drop, state, step_x) -> float:
+    """Carry envs 0-1 of the card's union state to the same scene on the CPU,
+    take the same step there and return the largest difference to the
+    card's envs 0-1 after its step (``step_x``)."""
+    from tacex_tpu_torch.physics.soft.ipc import SoftBodyState
+
+    ref, _, _, ref_drop = uipc_union_scene("cpu", 2)
+    ref._union_state = SoftBodyState(x=state.x[:2].cpu(), v=state.v[:2].cpu())
+    ref._refresh_union_slices()
+    ref_drop["d"] = drop["d"]
+    ref.step()
+    return float((ref._union_state.x - step_x[:2].cpu()).abs().max())
+
+
+def _step_n_scene(device):
+    """``tests/test_torch_uipc_worlds.py``'s FEM scene at 16 envs: a (3, 3, 2)
+    gel hung by its mount without a provider, and a (2, 2, 1) one falling
+    onto the ground, each with its own model (3 Newton x 8 CG)."""
+    from tacex_tpu_torch.physics.soft.mesh import box_tet_mesh
+    from tacex_tpu_torch.uipc import StableNeoHookeanCfg, UipcObject, UipcObjectCfg, UipcSim, UipcSimCfg
+
+    sim = UipcSim(UipcSimCfg(dt=1 / 60, num_envs=UIPC_API_ENVS, enable_ground=True,
+                             newton=UipcSimCfg.Newton(max_iter=3), linear_system=UipcSimCfg.LinearSystem(max_iter=8)),
+                  device=device)
+    con = UipcObjectCfg(constitution=StableNeoHookeanCfg(youngs_modulus=0.1))
+    hung = UipcObject(con, sim, mesh=box_tet_mesh((0.03, 0.03, 0.01), (3, 3, 2), center=(0, 0, 0.05)))
+    hung.set_attachments(np.where(hung.mesh.points[:, 2] > 0.055 - 1e-9)[0].astype(np.int32))
+    UipcObject(con, sim, mesh=box_tet_mesh((0.02, 0.02, 0.01), (2, 2, 1), center=(0.1, 0, 0.006)))
+    sim.setup_sim()
+    return sim
+
+
+def uipc_api_phase(device) -> dict:
+    """The UIPC scene API (no K1/K2 on its path): the six example scenes at
+    their own envs and meshes, their steps cut (``UIPC_EXAMPLES``); the
+    full-width union scene at 16 envs (``uipc_union_scene``), its steps
+    under sync-debug "error", with ms a step and a solve, the profiler's
+    device activities and busy share, peak memory, the broad-phase counts,
+    penetration and force checks, and envs 0-1 held to the CPU after one
+    step; ``step_n`` against ``step``; a save/replay round trip; and the CCD
+    envelope script inside and outside the envelope."""
+    import runpy
+
+    t_phase = time.perf_counter()
+    out = {"examples": {}}
+    for script, steps in UIPC_EXAMPLES.items():
+        t0 = time.perf_counter()
+        r = runpy.run_path(str(REPO / script))["main"](["--steps", str(steps), "--device", str(device)])
+        x = r["x"]
+        if not np.isfinite(x).all():
+            raise AssertionError(f"uipc_api: {script} positions are not finite")
+        name = Path(script).stem
+        out["examples"][name] = dict(ms_per_step=r["ms_per_step"], steps=steps, shape=list(x.shape),
+                                     seconds=time.perf_counter() - t0)
+        if "overflow" in r:
+            out["examples"][name]["overflow"] = {k: v.tolist() for k, v in r["overflow"].items()}
+        print(f"uipc_api: {name} {tuple(x.shape)}: {steps} steps, {r['ms_per_step']:.1f} ms a step "
+              f"(whole run {time.perf_counter() - t0:.1f} s)")
+
+    n = UIPC_API_ENVS
+    sim, bottom, top, drop = uipc_union_scene(device, n)
+    drop["d"] = UIPC_API_DROP
+    sim.step()  # warm-up
+    _reset_counters()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref_err = None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(2, UIPC_API_STEPS + 1):
+            drop["d"] = UIPC_API_DROP * i
+            if i == UIPC_API_REF_AFTER + 1:
+                state_before = sim._union_state
+            sim.step()
+            if i == UIPC_API_REF_AFTER + 1:
+                step_x = sim._union_state.x
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / (UIPC_API_STEPS - 1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if _read_counters() != {"deformation_pyramid": 0, "lut_shade": 0}:
+        raise AssertionError(f"uipc_api: the scene API launched {_read_counters()}, expected no kernel")
+    ref_drop = drop["d"]
+    drop["d"] = UIPC_API_DROP * (UIPC_API_REF_AFTER + 1)
+    ref_err = _union_reference(sim, drop, state_before, step_x)
+    drop["d"] = ref_drop
+    if ref_err > UIPC_API_ATOL:
+        raise AssertionError(f"uipc_api: envs 0-1 of the union step differ from the CPU by {ref_err:.3g} m")
+    u = sim._union_state
+    if not bool(torch.isfinite(u.x).all()):
+        raise AssertionError("uipc_api: the union state is not finite")
+    model = sim._union_model
+    aim = sim._union_aim()
+    scene = sim._scene(None)
+    solve_ms = _host_ms(lambda: model.step(u, scene, aim), iters=1)
+    activities, device_ms = _launch_count(lambda: sim.step())
+    xb, xt = bottom.state.x, top.state.x
+    face = torch.as_tensor(bottom.mesh.points[:, 2] > bottom.mesh.points[:, 2].max() - 1e-6, device=xb.device)
+    rest_face_z = float(bottom.mesh.points[:, 2].max())
+    descent = float((rest_face_z - xb[:, face, 2]).amax())
+    gap = float((xt[..., 2].amin(-1) - xb[:, face, 2].amax(-1)).min())
+    if descent < 1e-5:
+        raise AssertionError(f"uipc_api: the top pad's force does not reach the bottom pad (descent {descent:.3g} m)")
+    if gap < -1e-4:
+        raise AssertionError(f"uipc_api: the pads interpenetrate (gap {gap:.3g} m)")
+    overflow = {k: v.tolist() for k, v in sim.check_health().items()}
+    print(f"uipc_api: union of two TetMeshCfg() pads, {n} envs, {model.mesh.num_vertices} vertices, self and edge-edge "
+          f"contact K=4, {UIPC_API_STEPS - 1} steps with no host sync: {step_ms:.1f} ms a step (host clock, "
+          f"synchronised; one solve alone {solve_ms:.1f} ms), {activities} device activities a step taking "
+          f"{device_ms:.1f} ms of device time (torch.profiler; {100.0 * device_ms / step_ms:.1f}% busy), peak memory "
+          f"{peak_gb:.3f} GB; bottom face pushed {1e3 * descent:.3f} mm, smallest pad gap {1e3 * gap:.3f} mm; "
+          f"envs 0-1 vs the CPU after one step {ref_err:.3g} m; broad-phase drops {overflow}")
+    out["union"] = dict(envs=n, vertices=model.mesh.num_vertices, step_ms=step_ms, solve_ms=solve_ms,
+                        device_activities=activities, device_ms=device_ms, device_busy=device_ms / step_ms,
+                        peak_gb=peak_gb, descent_mm=1e3 * descent, gap_mm=1e3 * gap, cpu_max_err=ref_err,
+                        overflow=overflow)
+
+    # save_frame / replay_frame: a later step and vertex write leave the snapshot as it was
+    frame = sim.save_frame()
+    saved = (bottom.state.x.clone(), top.state.x.clone())
+    sim.step()
+    top.write_vertex_positions_to_sim(top.init_vertex_pos)
+    sim.replay_frame(frame)
+    if not (torch.equal(bottom.state.x, saved[0]) and torch.equal(top.state.x, saved[1])):
+        raise AssertionError("uipc_api: replay_frame did not restore the saved frame")
+    del sim, bottom, top, u, model
+
+    # step_n(n) against n steps, in deterministic mode (atomic sums would
+    # otherwise order the HVPs' additions differently between the two runs)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        a, b = _step_n_scene(device), _step_n_scene(device)
+        for _ in range(STEP_N_STEPS):
+            a.step()
+        b.step_n(STEP_N_STEPS)
+        step_n_err = max(float((oa.state.x - ob.state.x).abs().max()) for oa, ob in zip(a.objects, b.objects))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if step_n_err > 1e-6:
+        raise AssertionError(f"uipc_api: step_n({STEP_N_STEPS}) differs from {STEP_N_STEPS} steps by {step_n_err:.3g} m")
+    moved = float((a.objects[0].state.x - torch.as_tensor(a.objects[0].init_vertex_pos, device=device)).abs().max())
+    print(f"uipc_api: step_n({STEP_N_STEPS}) vs {STEP_N_STEPS} steps at {UIPC_API_ENVS} envs: max difference "
+          f"{step_n_err:.3g} m (the hung gel moved {1e3 * moved:.3f} mm); save/replay restored the frame exactly")
+    out["step_n_max_err"] = step_n_err
+
+    ccd = runpy.run_path(str(REPO / "scripts/benchmarking/ccd_envelope_torch.py"))["run"]
+    rows = [ccd(1 / 60, vel, 1, device) for vel in (0.8, 1.6)]
+    if rows[0]["tunneled"] or not rows[1]["tunneled"]:
+        raise AssertionError(f"uipc_api: the CCD envelope rows are not inside / outside: {rows}")
+    print("uipc_api: ccd_envelope", json.dumps(rows))
+    out["ccd_envelope"] = rows
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"uipc_api: phase {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -1872,24 +2097,34 @@ def main() -> None:
     policy.init_(torch.Generator(device=device).manual_seed(0))
     state, obs, *_ = env.step(state, _policy_action(policy, obs))
 
-    sensor = sensor_phase(device)
-    kernels = kernel_phase(env, state, device, sensor.pop("frame"), sensor.pop("lut"))
-    calib = calib_frame_phase(device)
+    seconds = {}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        print(f"phase {name}: {seconds[name]} s")
+        return result
+
+    sensor = phase("sensor", sensor_phase, device)
+    kernels = phase("kernel", kernel_phase, env, state, device, sensor.pop("frame"), sensor.pop("lut"))
+    calib = phase("calib", calib_frame_phase, device)
     kernels.update(calib.pop("kernels"))
-    run = slice_phase(env, state, obs, policy)
-    reference_phase(device)
+    run = phase("slice", slice_phase, env, state, obs, policy)
+    phase("reference", reference_phase, device)
     del env, state, obs, policy
-    train = train_phase(device)
-    privileged = privileged_train_phase(device)
-    env_phase(device)
-    shading = shading_phase(device)
-    factory = factory_phase(device)
-    factory_train = factory_train_phase(device)
-    pole = pole_phase(device)
-    sac = sac_phase(device)
-    uipc = uipc_phase(device)
-    tools = tools_phase(device)
-    coupled = coupled_phase(device)
+    train = phase("train", train_phase, device)
+    privileged = phase("privileged_train", privileged_train_phase, device)
+    phase("env", env_phase, device)
+    shading = phase("shading", shading_phase, device)
+    factory = phase("factory", factory_phase, device)
+    factory_train = phase("factory_train", factory_train_phase, device)
+    pole = phase("pole", pole_phase, device)
+    sac = phase("sac", sac_phase, device)
+    uipc = phase("uipc", uipc_phase, device)
+    tools = phase("tools", tools_phase, device)
+    coupled = phase("coupled", coupled_phase, device)
+    uipc_api = phase("uipc_api", uipc_api_phase, device)
 
     kernels.update(factory.pop("kernels"))
     kernels.update(uipc.pop("kernels"))
@@ -1950,6 +2185,8 @@ def main() -> None:
         "coupled": {k: v for k, v in coupled.items() if k != "launches"},
         "tools": tools,
         "sensor_640x480_update_ms": calib["update_ms"],
+        "uipc_api": uipc_api,
+        "phase_seconds": seconds,
     }
     print(json.dumps(report))
     card = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

@@ -13,7 +13,10 @@ generalized mass from the surface mesh's moments, its inverse, the
 generalized gravity force) are computed in float64 numpy and sent to the
 device once.
 
-Not ported (they raise ``NotImplementedError``, ROADMAP Queue 1 item 8):
+``rotate_target`` advances a RotatingMotor's target, as the UIPC scene
+API (``tacex_tpu_torch.uipc``) drives motors in the coupled world.
+
+Not ported (they raise ``NotImplementedError``, ROADMAP Queue 1 item 8a):
 body-body contact (``contact_k``, ``ee_contact_k``), its pair friction, and
 the standalone ABD solve (``AbdModel.step``): the coupled world runs the
 ABD energy inside its own Newton solve, and its bodies meet only the gel
@@ -31,7 +34,7 @@ from ...core.config import configclass
 from ...core.device import DEFAULT_DEVICE, resolve
 from .ipc import barrier_extended, friction_mollifier
 
-UNPORTED = "is not ported yet (ROADMAP Queue 1 item 8: ABD body-body contact and the standalone ABD solve)"
+UNPORTED = "is not ported yet (ROADMAP Queue 1 item 8a: ABD body-body contact and the standalone ABD solve)"
 
 
 @configclass
@@ -80,6 +83,24 @@ def embed_points(q: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """x = A p + t. q: (..., 12); pts: (V, 3) -> (..., V, 3)."""
     A, t = q_to_affine(q)
     return torch.einsum("...ij,vj->...vi", A, pts) + t[..., None, :]
+
+
+def rotation_about(axis, angle: float, device=DEFAULT_DEVICE) -> torch.Tensor:
+    """(3, 3) rotation by ``angle`` about ``axis`` (Rodrigues), built on the
+    host in float32 as the JAX package's and sent to the device once."""
+    axis = np.asarray(axis, np.float32)
+    axis = axis / np.linalg.norm(axis)
+    c, s = np.float32(np.cos(angle)), np.float32(np.sin(angle))
+    K = np.array([[0.0, -axis[2], axis[1]], [axis[2], 0.0, -axis[0]], [-axis[1], axis[0], 0.0]], np.float32)
+    R = np.eye(3, dtype=np.float32) + s * K + (np.float32(1) - c) * (K @ K)
+    return torch.as_tensor(R, device=resolve(device))
+
+
+def rotate_target(q_star: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    """RotatingMotor: advance a target pose q_star (..., 12) by the rotation
+    R (3, 3) (``rotation_about``) about the body's own origin, A -> R A."""
+    A, t = q_to_affine(q_star)
+    return torch.cat([t, (R @ A).flatten(-2)], -1)
 
 
 def inverse3(A: torch.Tensor) -> torch.Tensor:

@@ -25,15 +25,21 @@ distances above their step-start floors, cross distances above theirs, and
 no vertex crossing a candidate triangle in either direction (the co-moving
 crossing test).
 
+The FEM model's own families (self contact, which makes two gels of one
+union model meet, static triangles and edge-edge pairs) join the energy and
+the feasibility test as in ``SoftBodyModel``'s own solve.
+``broad_phase_overflow`` and ``missed_barriers`` count the pairs the
+fixed-capacity candidate sets dropped. The solve takes no substeps:
+``ccd_substeps`` of the FEM model's cfg is not read, as in the JAX package
+(the UIPC scene API warns and applies one).
+
 Envs never mix: every energy, mask and step length is per env, and
 choices are ``torch.where``, so ``step`` reads nothing back to the host.
 The candidate sets are chosen with a stable sort, which keeps the lower
 index among tied centroid distances, as ``jax.lax.top_k`` does.
 
-Not ported (they raise ``NotImplementedError``, ROADMAP Queue 1 item 8):
-the FEM self, static-trimesh and edge-edge families, ABD body-body contact,
-and the broad-phase counters (``broad_phase_overflow``).
-``missed_barriers`` is ported.
+Not ported: ABD body-body contact (the ABD model raises for it, ROADMAP
+Queue 1 item 8a).
 """
 
 from __future__ import annotations
@@ -47,18 +53,20 @@ from .ipc import (
     RigidSdfScene,
     SoftBodyModel,
     SoftBodyState,
+    _centroids,
     _clip,
+    _gather,
+    _nearest,
     _point_triangle_closest,
     _point_triangle_distance,
     _segment_crosses_moving_triangle,
+    _sq_dist,
     barrier_extended,
     barrier_force_mag,
     derivatives,
     friction_mollifier,
     scene_friction_basis,
 )
-
-UNPORTED = "is not ported yet (ROADMAP Queue 1 item 8: self, static-trimesh, edge-edge and body-body contact)"
 
 
 def _triangle_barycentric(q, a, b, c):
@@ -78,27 +86,11 @@ def _triangle_barycentric(q, a, b, c):
     return torch.stack([1.0 - v - w, v, w], dim=-1)
 
 
-def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Rows of x (N, V, d) at per-env indices idx (N, ...) -> (N, ..., d)."""
-    n, d = x.shape[0], x.shape[-1]
-    flat = idx.reshape(n, -1, 1).expand(-1, -1, d)
-    return torch.gather(x, 1, flat).reshape(idx.shape + (d,))
-
-
-def _centroids(x: torch.Tensor, tris: torch.Tensor) -> torch.Tensor:
-    """(N, T, 3) triangle centroids, summed corner by corner as JAX's mean."""
-    a, b, c = (x.index_select(1, tris[:, i]) for i in range(3))
-    return (a + b + c) / 3.0
-
-
-def _nearest(p: torch.Tensor, cent: torch.Tensor, k: int, cut: float):
+def _nearest_within(p: torch.Tensor, cent: torch.Tensor, k: int, cut: float):
     """The k nearest centroids of each point by squared distance (ties to the
     lower index, as ``jax.lax.top_k``) and whether each is within ``cut``."""
-    diff = p[:, :, None, :] - cent[:, None, :, :]
-    d2 = diff[..., 0] ** 2 + diff[..., 1] ** 2 + diff[..., 2] ** 2
-    d2s, order = torch.sort(d2, dim=-1, stable=True)
-    k = min(k, cent.shape[1])
-    return order[..., :k], d2s[..., :k] < cut * cut
+    d2s, order = _nearest(_sq_dist(p, cent), k)
+    return order, d2s < cut * cut
 
 
 class CoupledModel:
@@ -119,29 +111,43 @@ class CoupledModel:
         assert abs(c.d_hat - a.d_hat) < 1e-12 and abs(c.kappa - a.kappa_contact) < 1e-9
         assert abs(c.dt - a.dt) < 1e-12
         assert fem.device == abd.device, (fem.device, abd.device)
-        if c.ccd_substeps > 1:
-            raise NotImplementedError(f"ccd_substeps={c.ccd_substeps} in the coupled solve {UNPORTED}")
         self.device = fem.device
         self._gravity = torch.tensor(c.gravity, dtype=torch.float32, device=self.device)
         self._q_gravity = torch.einsum("bij,bj->bi", abd.mass_inv, abd.gravity_q)  # (B, 12)
         self._fem_pre = 1.0 / (fem.masses[:, None] / c.dt**2)  # (V, 1)
         self._eye12 = torch.eye(12, dtype=torch.float32, device=self.device)
 
-    # ------------------------------------------------------------- unported
-    def broad_phase_overflow(self, x, q):
-        raise NotImplementedError(f"broad_phase_overflow (the candidate-set counters) {UNPORTED}")
-
     # ------------------------------------------------------------ candidates
     def _cross_candidates(self, xs, y):
         """Family A: for each FEM surface vertex (N, Vs, 3), its K nearest ABD
         triangles of the ABD vertices y (N, Va, 3) -> (cand, valid) (N, Vs, K)."""
         cut = 3.0 * self.fem.cfg.d_hat + self.abd._tri_radius_max
-        return _nearest(xs, _centroids(y, self.abd.tris), self.cross_k, cut)
+        return _nearest_within(xs, _centroids(y, self.abd.tris), self.cross_k, cut)
 
     def _cross_candidates_b(self, x, y):
         """Family B: for each ABD vertex, its K nearest FEM surface triangles."""
         cut = 3.0 * self.fem.cfg.d_hat + self.fem._tri_radius_max
-        return _nearest(y, _centroids(x, self.fem.surface_tris), self.cross_k, cut)
+        return _nearest_within(y, _centroids(x, self.fem.surface_tris), self.cross_k, cut)
+
+    def broad_phase_overflow(self, x: torch.Tensor, q: torch.Tensor) -> dict[str, torch.Tensor]:
+        """Within-reach candidates dropped past the K nearest, per env
+        (x (N, V, 3), q (N, B, 12)) -> {key: (N,) int64}: both cross
+        families (``vt_cross_a``, ``vt_cross_b``) and the FEM model's own
+        (``SoftBodyModel.broad_phase_overflow``). The ABD model has no
+        family of its own here (body-body contact is not ported)."""
+        c = self.fem.cfg
+        xs = x.index_select(1, self.fem.surface_verts)
+        y = self.abd.world_points(q)
+        out: dict[str, torch.Tensor] = {}
+        for key, p, cent, radius in (
+            ("vt_cross_a", xs, _centroids(y, self.abd.tris), self.abd._tri_radius_max),
+            ("vt_cross_b", y, _centroids(x, self.fem.surface_tris), self.fem._tri_radius_max),
+        ):
+            cut = 3.0 * c.d_hat + radius
+            within = (_sq_dist(p, cent) < cut * cut).sum(-1)
+            out[key] = torch.clamp(within - min(self.cross_k, cent.shape[1]), min=0).sum(-1)
+        out.update(self.fem.broad_phase_overflow(x))
+        return out
 
     def missed_barriers(self, x: torch.Tensor, q: torch.Tensor, reach_frac: float = 0.5) -> torch.Tensor:
         """(N,) cross-family pairs within ``reach_frac * d_hat`` (exact
@@ -251,6 +257,7 @@ class CoupledModel:
         idxB = fem.surface_tris[candB]  # (N, Va, K, 3)
         tbA = abd.tri_body[candA]  # (N, Vs, K)
         cand = (idxA, validA, idxB, validB, tbA)
+        fam = fem._families(x)  # the FEM model's self, static and edge-edge families
 
         def unpack(z):
             return z[:, : 3 * V].unflatten(1, (V, 3)), z[:, 3 * V :].unflatten(1, (B, 12))
@@ -268,7 +275,7 @@ class CoupledModel:
         def energy_of(z, lags):
             fl, al, cl = lags
             xx, qq = unpack(z)
-            e = fem._energy(xx, x_tilde, scene, aim_pos, x, fl, c.dt)
+            e = fem._energy(xx, x_tilde, scene, aim_pos, x, fl, c.dt, fam)
             e = e + abd._energy(qq, q_tilde, scene, aim_q, aim_strength, y0, al)
             return e + self._cross_energy(xx, qq, cand, cl, xs0, y0)
 
@@ -302,6 +309,8 @@ class CoupledModel:
             xs_f = xf.index_select(1, fem.surface_verts)
             y_t, y_f = abd.world_points(qq), abd.world_points(qf)
             ok = (scene.sdf(xs_t).amin(-1) > d_floor) & (scene.sdf(y_t).amin(-1) > d_floor_abd)
+            if fam is not None:
+                ok = ok & fem._family_feasible(fam, xx, xs_t, xf, xs_f)
             triA, triA0 = _gather(y_t, idxA), _gather(y_f, idxA)
             triB, triB0 = _gather(xx, idxB), _gather(xf, idxB)
             dA, dB = self._cross_distances(xs_t, y_t, triA, triB)

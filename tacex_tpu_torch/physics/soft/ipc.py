@@ -27,21 +27,29 @@ straight-through tangent anchored at the step start, which only matters to
 a gradient through ``step``; the port has none (``step`` raises for inputs
 that require grad).
 
-The vertex-triangle primitives (closest point, distance, and the
-segment-crosses-triangle tests of the line search's feasibility check) are
-here too: the coupled FEM+ABD world (``coupled.py``) builds its cross
-barriers on them.
+The contact families of a nodal model (a union of several soft bodies is
+one model) are here with their primitives: self contact (each surface
+vertex against its K nearest non-adjacent surface triangles), edge-edge
+contact (each surface edge against its K nearest higher-index non-adjacent
+edges, weighted by the parallel-edge mollifier) and static trimesh
+colliders (each surface vertex against its K nearest fixed triangles). Each
+family's candidates are chosen at the step's start by centroid (or
+midpoint) distance with a stable sort, so that a tie goes to the lower
+index, as ``jax.lax.top_k``; the line search rejects a trial that brings a
+pair under its distance floor or carries a vertex through a triangle or an
+edge through an edge. ``broad_phase_overflow`` counts the pairs within
+reach that the fixed-capacity candidate sets dropped. The coupled FEM+ABD
+world (``coupled.py``) builds on the same pieces.
 
-Not ported (they raise ``NotImplementedError``): self contact, static
-trimesh colliders, edge-edge contact (and its primitives), shell elements
-and the broad-phase overflow counters, none of which the UIPC, Grasp-Lift
-or Factory-UIPC envs use.
+Not ported: shell elements (``shell_elems``), which raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -52,7 +60,7 @@ from ...ops import sdf as sdf_ops
 from .fem import lame_params, lumped_masses, precompute_rest, stable_neo_hookean_energy
 from .mesh import TetMesh
 
-UNPORTED = "is not ported yet (ROADMAP Queue 1 item 8: self, static-trimesh and edge-edge contact, shells)"
+UNPORTED = "is not ported yet (ROADMAP Queue 1 item 8b: shells, codim.py and the cloth scenes)"
 
 
 def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
@@ -142,6 +150,72 @@ def _segment_crosses_moving_triangle(p0, p1, a0, b0, c0, a1, b1, c1, eps: float 
     return _segment_crosses_triangle(p0 + shift, p1, a1, b1, c1, eps)
 
 
+def _segment_segment_closest(p1, p2, q1, q2):
+    """Closest points (cp, cq) between segments [p1, p2] and [q1, q2],
+    broadcast over leading dims (Ericson 5.1.9 as a branch-free ``where``
+    cascade). The parallel guard is scale-free: sin^2 of the angle between
+    the segments, with the s = 0 endpoint solve below 1e-4."""
+    d1, d2 = p2 - p1, q2 - q1
+    r = p1 - q1
+    a, e = _dot(d1, d1), _dot(d2, d2)
+    f, c, b = _dot(d2, r), _dot(d1, r), _dot(d1, d2)
+    ae = torch.clamp(a * e, min=1e-30)
+    sin2 = torch.clamp(1.0 - (b * b) / ae, min=0.0)
+    num_n = (b * f - c * e) / ae
+    s_gen = _clip(num_n / torch.clamp(sin2, min=1e-4), 0.0, 1.0)
+    s = torch.where(sin2 > 1e-4, s_gen, 0.0)
+    # t for that s, then clamp it and recompute s (the two-pass fix-up)
+    e_ok, a_ok = e > 1e-20, a > 1e-20
+    t = torch.where(e_ok, (b * s + f) / torch.where(e_ok, e, 1.0), 0.0)
+    t_cl = _clip(t, 0.0, 1.0)
+    s2 = torch.where(a_ok, (b * t_cl - c) / torch.where(a_ok, a, 1.0), 0.0)
+    s_fin = torch.where(t != t_cl, _clip(s2, 0.0, 1.0), s)
+    return p1 + s_fin[..., None] * d1, q1 + t_cl[..., None] * d2
+
+
+def _edge_edge_distance(p1, p2, q1, q2):
+    """Unsigned segment-segment distance (eps under the sqrt, as the
+    point-triangle one)."""
+    cp, cq = _segment_segment_closest(p1, p2, q1, q2)
+    return torch.sqrt(((cp - cq) ** 2).sum(-1) + 1e-18)
+
+
+def _edge_pair_crossed(p1a, p2a, q1a, q2a, p1b, p2b, q1b, q2b, eps: float = 1e-3):
+    """True where the edge pair (p, q) crossed between state a and state b:
+    the signed line-line gap flips sign while the mutual closest points lie
+    within both segments. Near-parallel pairs (sin^2 < 1e-4) are left out;
+    their gap's sign is noise and the mollifier fades their barrier."""
+
+    def gap_params(p1, p2, q1, q2):
+        d1, d2 = p2 - p1, q2 - q1
+        n = torch.linalg.cross(d1, d2, dim=-1)
+        nn = torch.sqrt((n * n).sum(-1) + 1e-30)
+        g = ((q1 - p1) * n).sum(-1) / nn
+        r = p1 - q1
+        a, e, b = _dot(d1, d1), _dot(d2, d2), _dot(d1, d2)
+        c, f = _dot(d1, r), _dot(d2, r)
+        ae = torch.clamp(a * e, min=1e-30)
+        sin2 = torch.clamp(1.0 - (b * b) / ae, min=0.0)
+        s = ((b * f - c * e) / ae) / torch.clamp(sin2, min=1e-4)
+        e_ok = e > 1e-20
+        t = torch.where(e_ok, (b * s + f) / torch.where(e_ok, e, 1.0), 0.0)
+        return g, s, t, sin2
+
+    ga = gap_params(p1a, p2a, q1a, q2a)[0]
+    gb, sb, tb, sin2b = gap_params(p1b, p2b, q1b, q2b)
+    interior = (sb > -eps) & (sb < 1.0 + eps) & (tb > -eps) & (tb < 1.0 + eps)
+    return interior & (sin2b > 1e-4) & (ga * gb < 0)
+
+
+def edge_edge_mollifier(p1, p2, q1, q2, eps_x):
+    """IPC's parallel-edge mollifier (Li et al. 2020, 4.2): the edge-edge
+    barrier is weighted by m(c) = (2 - c/eps_x)(c/eps_x), capped at 1, with
+    c = |d1 x d2|^2, so that near-parallel pairs fade out smoothly."""
+    cr = torch.linalg.cross(p2 - p1, q2 - q1, dim=-1)
+    x = (cr * cr).sum(-1) / torch.clamp(eps_x, min=1e-30)
+    return torch.where(x < 1.0, x * (2.0 - x), 1.0)
+
+
 def barrier_extended(d, kappa: float, d_hat: float):
     """Per-distance IPC log-barrier with a C^2 quadratic extension below
     d0 = 0.1 d_hat (value, slope and curvature matched at d0), for vertices
@@ -226,7 +300,7 @@ class IpcSolverCfg:
     friction_mu: float = 0.5  # default_friction_ratio
     eps_velocity: float = 0.01  # friction smoothing velocity (m/s)
     damping: float = 0.0
-    # the contact families below are not ported: nonzero k raises
+    # candidates a surface vertex (edge) keeps of each contact family; 0 is off
     self_contact_k: int = 0
     static_contact_k: int = 4
     ee_contact_k: int = 0
@@ -274,7 +348,7 @@ class RigidSdfScene:
         if self.threads is not None:
             raise NotImplementedError(
                 "thread colliders in the soft-body scene are not ported yet "
-                "(ROADMAP Queue 1 item 9: the UIPC API and screw_and_nut)"
+                "(ROADMAP Queue 1 item 8a: the ABD solve and screw_and_nut)"
             )
         return sdf_ops.scene_sdf(p, self.spheres, self.boxes, self.capsules, self.planes)
 
@@ -294,6 +368,68 @@ def _lerp_scene(prev: RigidSdfScene, curr: RigidSdfScene, tau: float) -> RigidSd
     q = sc.boxes[..., 3:7]
     q = q / torch.sqrt((q**2).sum(-1, keepdim=True) + 1e-30)
     return dataclasses.replace(sc, boxes=torch.cat([sc.boxes[..., :3], q, sc.boxes[..., 7:]], -1))
+
+
+def scene_motion(prev: RigidSdfScene, curr: RigidSdfScene) -> torch.Tensor:
+    """(N,) upper bound on how far any collider surface point moved between
+    two frames, the quantity of the kinematic-collider CCD envelope: spheres
+    |dc|; boxes |dc| + |dq| |half-diagonal|; capsules max(|da|, |db|);
+    planes |d offset| + |dn| (a 1 m lever); threads |d base|. Disabled
+    primitives count 0."""
+
+    def mag(a, b, lo, hi):
+        return torch.sqrt(((b[..., lo:hi] - a[..., lo:hi]) ** 2).sum(-1) + 1e-30)
+
+    cb = curr.boxes
+    moves = [
+        torch.where(curr.spheres[..., 3] > 0, mag(prev.spheres, curr.spheres, 0, 3), 0.0),
+        torch.where(
+            cb[..., 7] > 0,
+            mag(prev.boxes, cb, 0, 3) + mag(prev.boxes, cb, 3, 7) * torch.sqrt((cb[..., 7:10] ** 2).sum(-1) + 1e-30),
+            0.0,
+        ),
+        torch.where(
+            curr.capsules[..., 7] > 0,
+            torch.maximum(mag(prev.capsules, curr.capsules, 0, 3), mag(prev.capsules, curr.capsules, 3, 6)),
+            0.0,
+        ),
+        torch.where(
+            (curr.planes[..., :3] ** 2).sum(-1) > 0.5,
+            (curr.planes[..., 3] - prev.planes[..., 3]).abs() + mag(prev.planes, curr.planes, 0, 3),
+            0.0,
+        ),
+    ]
+    if curr.threads is not None:
+        moves.append(mag(prev.threads, curr.threads, 0, 3))
+    return torch.stack([m.amax(-1) for m in moves], -1).amax(-1)
+
+
+def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows of x (N, V, d) at per-env indices idx (N, ...) -> (N, ..., d)."""
+    n, d = x.shape[0], x.shape[-1]
+    flat = idx.reshape(n, -1, 1).expand(-1, -1, d)
+    return torch.gather(x, 1, flat).reshape(idx.shape + (d,))
+
+
+def _centroids(x: torch.Tensor, elems: torch.Tensor) -> torch.Tensor:
+    """(N, T, 3) element centroids of x (N, V, 3) for elements (T, k) of k
+    vertex ids, summed corner by corner as JAX's mean."""
+    k = elems.shape[1]
+    return sum(x.index_select(1, elems[:, i]) for i in range(k)) / float(k)
+
+
+def _sq_dist(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """(N, P, Q) squared distances between the points p (N, P, 3) and q (N|1, Q, 3)."""
+    diff = p[:, :, None, :] - q[:, None, :, :]
+    return diff[..., 0] ** 2 + diff[..., 1] ** 2 + diff[..., 2] ** 2
+
+
+def _nearest(d2: torch.Tensor, k: int):
+    """The k smallest entries of each row of d2 (..., Q) and their indices;
+    a tie goes to the lower index, as ``jax.lax.top_k``."""
+    d2s, order = torch.sort(d2, dim=-1, stable=True)
+    k = min(k, d2.shape[-1])
+    return d2s[..., :k], order[..., :k]
 
 
 class SoftBodyModel:
@@ -316,12 +452,6 @@ class SoftBodyModel:
         self.cfg = cfg or IpcSolverCfg()
         self.device = dev = resolve(device)
         c = self.cfg
-        if c.self_contact_k > 0:
-            raise NotImplementedError(f"self contact (self_contact_k={c.self_contact_k}) {UNPORTED}")
-        if c.ee_contact_k > 0:
-            raise NotImplementedError(f"edge-edge contact (ee_contact_k={c.ee_contact_k}) {UNPORTED}")
-        if static_tris is not None and len(static_tris) > 0:
-            raise NotImplementedError(f"static trimesh colliders (static_tris) {UNPORTED}")
         if shell_elems is not None and shell_elems.num_tris > 0:
             raise NotImplementedError(f"shell elements (shell_elems) {UNPORTED}")
 
@@ -336,12 +466,39 @@ class SoftBodyModel:
         masses = np.asarray(lumped_masses(mesh.points, mesh.tets, mass_density))
         assert (masses > 0).all(), "zero-mass vertex: every vertex must belong to a tet"
         self.masses = torch.as_tensor(masses, **f32)  # (V,)
-        self.surface_verts = torch.as_tensor(np.asarray(mesh.surface_verts, np.int64), device=dev)
+        sv = np.asarray(mesh.surface_verts, np.int64)
+        self.surface_verts = torch.as_tensor(sv, device=dev)
         st = np.asarray(mesh.surface_tris, np.int64)
         self.surface_tris = torch.as_tensor(st, device=dev)  # (Ts, 3) vertex ids
         tri_pts = np.asarray(mesh.points)[st]
         self._tri_radius_max = float(np.linalg.norm(tri_pts - tri_pts.mean(1, keepdims=True), axis=-1).max())
         self._gravity = torch.tensor(c.gravity, **f32)
+        # self contact: a vertex never meets a triangle it belongs to
+        self._vt_exclude = torch.as_tensor((sv[:, None, None] == st[None, :, :]).any(-1), device=dev)  # (Vs, Ts)
+
+        # the unique surface edges of edge-edge contact (only when it is on)
+        self.edges = None
+        if c.ee_contact_k > 0:
+            e_all = np.concatenate([st[:, [0, 1]], st[:, [1, 2]], st[:, [2, 0]]])
+            e_all.sort(axis=1)
+            edges = np.unique(e_all, axis=0)
+            self.edges = torch.as_tensor(edges, device=dev)  # (E, 2)
+            # pairs sharing a vertex are excluded, and each unordered pair is kept once (i < j)
+            share = (edges[:, None, :, None] == edges[None, :, None, :]).any(-1).any(-1)
+            upper = np.arange(len(edges))[:, None] >= np.arange(len(edges))[None, :]
+            self._ee_mask = torch.as_tensor(share | upper, device=dev)
+            pts = np.asarray(mesh.points)
+            elen2 = ((pts[edges[:, 1]] - pts[edges[:, 0]]) ** 2).sum(-1)
+            self._edge_len2 = torch.as_tensor(np.asarray(elen2, np.float32), **f32)
+            self._edge_halflen = torch.as_tensor(np.asarray(0.5 * np.sqrt(elen2), np.float32), **f32)
+
+        # fixed triangle-soup colliders
+        self.static_tris = self.static_cent = None
+        if static_tris is not None and len(static_tris) > 0:
+            self.static_tris = torch.as_tensor(np.asarray(static_tris, np.float32), **f32)  # (Tc, 3, 3)
+            self.static_cent = (self.static_tris[:, 0] + self.static_tris[:, 1] + self.static_tris[:, 2]) / 3.0
+            st64 = np.asarray(static_tris, np.float64)
+            self._static_radius_max = float(np.linalg.norm(st64 - st64.mean(1, keepdims=True), axis=-1).max())
 
         # attachments: soft position constraints of strength ratio x m_i / dt^2
         if attachment_verts is None:
@@ -351,13 +508,169 @@ class SoftBodyModel:
         k = attachment_strength_ratio * masses[attachment_verts] / c.dt**2
         self.attachment_k = torch.as_tensor(np.asarray(k, np.float32), **f32)[:, None]
 
-    # ------------------------------------------------------------- unported
-    def broad_phase_overflow(self, x):
-        raise NotImplementedError(f"broad_phase_overflow (the candidate-set counters) {UNPORTED}")
+    # ------------------------------------------------------ candidate sets
+    def _self_d2(self, x):
+        """(N, Vs, Ts) squared distances of the surface vertices to the
+        surface-triangle centroids, inf at a vertex's own triangles."""
+        d2 = _sq_dist(x.index_select(1, self.surface_verts), _centroids(x, self.surface_tris))
+        return torch.where(self._vt_exclude, math.inf, d2)
+
+    def _ee_d2(self, x):
+        """(N, E, E) squared distances of the edge midpoints, inf at pairs
+        that share a vertex and at j <= i."""
+        mid = _centroids(x, self.edges)
+        return torch.where(self._ee_mask, math.inf, _sq_dist(mid, mid))
+
+    def _select_candidates(self, x):
+        """Self contact: each surface vertex's K nearest non-adjacent surface
+        triangles by centroid distance -> (cand, valid) (N, Vs, K); a
+        candidate beyond barrier reach (3 d_hat + the largest triangle
+        radius) is not valid."""
+        d2k, cand = _nearest(self._self_d2(x), self.cfg.self_contact_k)
+        cut = 3.0 * self.cfg.d_hat + self._tri_radius_max
+        return cand, d2k < cut * cut
+
+    def _select_ee_candidates(self, x):
+        """Edge-edge: each surface edge's K nearest higher-index non-adjacent
+        edges by midpoint distance -> (cand, valid) (N, E, K)."""
+        d2k, cand = _nearest(self._ee_d2(x), self.cfg.ee_contact_k)
+        cut = 3.0 * self.cfg.d_hat + self._edge_halflen[:, None] + self._edge_halflen[cand]
+        return cand, d2k < cut * cut
+
+    def _static_candidates(self, xs):
+        """Static colliders: each surface vertex's K nearest fixed triangles by
+        centroid distance -> (N, Vs, K) triangle ids."""
+        return _nearest(_sq_dist(xs, self.static_cent[None]), self.cfg.static_contact_k)[1]
+
+    def broad_phase_overflow(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+        """Per family, the candidates within barrier reach (the cut the
+        candidate sets use) that fell outside the K nearest, summed over
+        the vertices (edges) of each env -> {key: (N,) int64}; keys
+        ``vt_self``, ``vt_static``, ``ee`` for the families that are on.
+        The K nearest are kept, so a row drops exactly max(#within - K, 0).
+        Nonzero means a pair within reach got no barrier this step: raise
+        ``self_contact_k`` / ``static_contact_k`` / ``ee_contact_k``."""
+        c = self.cfg
+        out: dict[str, torch.Tensor] = {}
+
+        def dropped(d2, cut, k):
+            within = (d2 < cut * cut).sum(-1)
+            return torch.clamp(within - k, min=0).sum(-1)
+
+        if c.self_contact_k > 0:
+            out["vt_self"] = dropped(self._self_d2(x), 3.0 * c.d_hat + self._tri_radius_max, c.self_contact_k)
+        if self.static_tris is not None:
+            d2 = _sq_dist(x.index_select(1, self.surface_verts), self.static_cent[None])
+            k = min(c.static_contact_k, self.static_cent.shape[0])
+            out["vt_static"] = dropped(d2, 3.0 * c.d_hat + self._static_radius_max, k)
+        if self.edges is not None:
+            cut = 3.0 * c.d_hat + self._edge_halflen[:, None] + self._edge_halflen[None, :]
+            out["ee"] = dropped(self._ee_d2(x), cut, min(c.ee_contact_k, self.edges.shape[0]))
+        return out
+
+    def _families(self, x):
+        """The step's contact families at its start x (N, V, 3), or None when
+        every family is off: the candidate corners' vertex ids and validity
+        of self contact and edge-edge contact (with each pair's mollifier
+        scale), the static triangles' corners, and the no-worsening floors
+        of the static and edge-edge distances."""
+        c = self.cfg
+        if c.self_contact_k <= 0 and self.static_tris is None and self.edges is None:
+            return None
+        fam = SimpleNamespace(self_idx=None, static_tri=None, ee_idx=None)
+        xs = x.index_select(1, self.surface_verts)
+        if c.self_contact_k > 0:
+            cand, fam.self_valid = self._select_candidates(x)
+            fam.self_idx = self.surface_tris[cand]  # (N, Vs, K, 3)
+        if self.static_tris is not None:
+            fam.static_tri = self.static_tris[self._static_candidates(xs)]  # (N, Vs, K, 3, 3)
+            d = self._static_distances(xs, fam.static_tri)
+            fam.s_floor = torch.clamp(0.999 * d.amin((-2, -1)), max=1e-7)
+        if self.edges is not None:
+            cand, fam.ee_valid = self._select_ee_candidates(x)
+            fam.ee_idx = self.edges[cand]  # (N, E, K, 2)
+            fam.ee_eps = 1e-3 * self._edge_len2[:, None] * self._edge_len2[cand]
+            d = self._ee_distances(x, fam.ee_idx)
+            fam.ee_floor = torch.clamp(0.999 * torch.where(fam.ee_valid, d, 1.0).amin((-2, -1)), max=1e-7)
+        return fam
+
+    # ----------------------------------------------------------- distances
+    def _pair_distances(self, x, xs, idx):
+        """(N, Vs, K) distances of the surface vertices xs to their candidate
+        triangles, whose corners are the vertices idx (N, Vs, K, 3) of x."""
+        tri = _gather(x, idx)
+        return _point_triangle_distance(xs[:, :, None, :], tri[..., 0, :], tri[..., 1, :], tri[..., 2, :])
+
+    @staticmethod
+    def _static_distances(xs, tri):
+        return _point_triangle_distance(xs[:, :, None, :], tri[..., 0, :], tri[..., 1, :], tri[..., 2, :])
+
+    def _edge_rows(self, x):
+        """(N, E, 2, 3) endpoints of every surface edge."""
+        return x.index_select(1, self.edges.flatten()).unflatten(1, tuple(self.edges.shape))
+
+    def _ee_distances(self, x, idx):
+        """(N, E, K) distances of each surface edge to its candidate edges,
+        whose endpoints are the vertices idx (N, E, K, 2) of x."""
+        pi, pj = self._edge_rows(x), _gather(x, idx)
+        return _edge_edge_distance(pi[:, :, None, 0], pi[:, :, None, 1], pj[..., 0, :], pj[..., 1, :])
+
+    def _family_energy(self, x, xs, fam):
+        """(N,) barrier energy of the self, static and edge-edge families; an
+        invalid candidate sits at 10 d_hat, beyond the barrier's reach."""
+        c = self.cfg
+        e = x.new_zeros(x.shape[0])
+        if fam.self_idx is not None:
+            d = torch.where(fam.self_valid, self._pair_distances(x, xs, fam.self_idx), 10.0 * c.d_hat)
+            e = e + barrier_extended(d, c.kappa, c.d_hat).sum((-2, -1))
+        if fam.static_tri is not None:
+            e = e + barrier_extended(self._static_distances(xs, fam.static_tri), c.kappa, c.d_hat).sum((-2, -1))
+        if fam.ee_idx is not None:
+            pi, pj = self._edge_rows(x), _gather(x, fam.ee_idx)
+            a, b, p, q = pi[:, :, None, 0], pi[:, :, None, 1], pj[..., 0, :], pj[..., 1, :]
+            d = torch.where(fam.ee_valid, _edge_edge_distance(a, b, p, q), 10.0 * c.d_hat)
+            m = edge_edge_mollifier(a, b, p, q, fam.ee_eps)
+            e = e + (m * barrier_extended(d, c.kappa, c.d_hat)).sum((-2, -1))
+        return e
+
+    def _family_feasible(self, fam, xx, xs_t, x_from, xs_f):
+        """(N,) whether the trial xx (from x_from) keeps every family's pairs
+        above their floors and crosses no candidate triangle or edge: self
+        pairs in the triangles' co-moving frame, static ones against the
+        fixed triangles, edge pairs by their signed gap."""
+        ok = torch.ones(xx.shape[0], dtype=torch.bool, device=xx.device)
+        if fam.self_idx is not None:
+            valid = fam.self_valid
+            ok = ok & (torch.where(valid, self._pair_distances(xx, xs_t, fam.self_idx), 1.0).amin((-2, -1)) > 1e-6)
+            tri, tri0 = _gather(xx, fam.self_idx), _gather(x_from, fam.self_idx)
+            crossed = _segment_crosses_moving_triangle(
+                xs_f[:, :, None, :], xs_t[:, :, None, :], tri0[..., 0, :], tri0[..., 1, :], tri0[..., 2, :],
+                tri[..., 0, :], tri[..., 1, :], tri[..., 2, :],
+            )
+            ok = ok & ~(crossed & valid).flatten(1).any(-1)
+        if fam.static_tri is not None:
+            tri = fam.static_tri
+            ok = ok & (self._static_distances(xs_t, tri).amin((-2, -1)) > fam.s_floor)
+            crossed = _segment_crosses_triangle(
+                xs_f[:, :, None, :], xs_t[:, :, None, :], tri[..., 0, :], tri[..., 1, :], tri[..., 2, :]
+            )
+            ok = ok & ~crossed.flatten(1).any(-1)
+        if fam.ee_idx is not None:
+            valid = fam.ee_valid
+            ok = ok & (torch.where(valid, self._ee_distances(xx, fam.ee_idx), 1.0).amin((-2, -1)) > fam.ee_floor)
+            pa, pja = self._edge_rows(x_from), _gather(x_from, fam.ee_idx)
+            pb, pjb = self._edge_rows(xx), _gather(xx, fam.ee_idx)
+            crossed = _edge_pair_crossed(
+                pa[:, :, None, 0], pa[:, :, None, 1], pja[..., 0, :], pja[..., 1, :],
+                pb[:, :, None, 0], pb[:, :, None, 1], pjb[..., 0, :], pjb[..., 1, :],
+            )
+            ok = ok & ~(crossed & valid).flatten(1).any(-1)
+        return ok
 
     # ----------------------------------------------------------------- energy
-    def _energy(self, x, x_tilde, scene, aim_pos, x_prev, friction_basis, dt, with_sdf=False):
-        """(N,) incremental potential of each env at x (N, V, 3); with
+    def _energy(self, x, x_tilde, scene, aim_pos, x_prev, friction_basis, dt, fam=None, with_sdf=False):
+        """(N,) incremental potential of each env at x (N, V, 3), with the
+        contact families ``fam`` (``_families``) when given; with
         ``with_sdf`` also the (N, Vs) surface signed distances it used."""
         c = self.cfg
         inertia = (0.5 / dt**2) * (self.masses[:, None] * (x - x_tilde) ** 2).sum((-2, -1))
@@ -365,6 +678,8 @@ class SoftBodyModel:
         xs = x.index_select(1, self.surface_verts)
         d = scene.sdf(xs)
         e = inertia + elastic + barrier_extended(d, c.kappa, c.d_hat).sum(-1)
+        if fam is not None:
+            e = e + self._family_energy(x, xs, fam)
         if self.attachment_verts.shape[0] > 0:
             dx = x.index_select(1, self.attachment_verts) - aim_pos
             e = e + 0.5 * (self.attachment_k * dx**2).sum((-2, -1))
@@ -393,9 +708,10 @@ class SoftBodyModel:
         # feasible, no-worsening when a collider moved into the gel
         d_floor = torch.clamp(scene.sdf(x.index_select(1, self.surface_verts)).amin(-1), max=0.0)
         precond = 1.0 / (self.masses[:, None] / dt**2)
+        fam = self._families(x)
 
         def energy(xx, basis, with_sdf=False):
-            return self._energy(xx, x_tilde, scene, aim_pos, x, basis, dt, with_sdf)
+            return self._energy(xx, x_tilde, scene, aim_pos, x, basis, dt, fam, with_sdf)
 
         x_k = x
         done = torch.zeros((n,), dtype=torch.bool, device=x.device)
@@ -427,8 +743,12 @@ class SoftBodyModel:
             alpha = torch.ones((n,), device=x.device)
             accepted = torch.zeros((n,), dtype=torch.bool, device=x.device)
             for _ in range(c.line_search_iters):
-                e_try, d_try = energy(x_k + alpha[:, None, None] * p, basis, with_sdf=True)
+                x_try = x_k + alpha[:, None, None] * p
+                e_try, d_try = energy(x_try, basis, with_sdf=True)
                 ok = (e_try < e0) & (d_try.amin(-1) > d_floor)
+                if fam is not None:
+                    sv = self.surface_verts
+                    ok = ok & self._family_feasible(fam, x_try, x_try.index_select(1, sv), x_k, x_k.index_select(1, sv))
                 alpha = torch.where(ok | accepted, alpha, alpha * 0.5)
                 accepted = ok | accepted
             alpha = torch.where(accepted, alpha, 0.0)

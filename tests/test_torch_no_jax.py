@@ -78,6 +78,27 @@ TOOL_MODULES = [
     "tacex_tpu_torch.sensors.gelsight.fem.mani_skill_sim",
 ]
 SLICE_MODULES += TOOL_MODULES
+# the UIPC scene API and its helpers
+UIPC_MODULES = [
+    "tacex_tpu_torch.uipc.objects",
+    "tacex_tpu_torch.uipc.attachments",
+    "tacex_tpu_torch.uipc.sim",
+    "tacex_tpu_torch.uipc.scene",
+    "tacex_tpu_torch.uipc",
+    "tacex_tpu_torch.sensors.gelsight.sensor_data",
+    "tacex_tpu_torch.sensors.gelsight.fem.geometry",
+]
+SLICE_MODULES += UIPC_MODULES
+# the UIPC examples and the CCD envelope script, with the arguments of a short run
+UIPC_SCRIPTS = {
+    "examples/libuipc_samples/hello_uipc_torch.py": ["--steps", "1"],
+    "examples/libuipc_samples/floating_cube_torch.py": ["--steps", "1"],
+    "examples/libuipc_samples/periodically_pressed_tetrahedron_torch.py": ["--steps", "1"],
+    "examples/falling_gel_cubes_torch.py": ["--steps", "1"],
+    "examples/single_uipc_attachment_torch.py": ["--steps", "1"],
+    "examples/grasp_lift_torch.py": ["--steps", "0"],  # its coupled world built; a step costs ~5 s here
+    "scripts/benchmarking/ccd_envelope_torch.py": ["--dts", "0.1", "--velocities", "1.0"],
+}
 # the slice's scripts, under scripts/
 TOOL_SCRIPTS = [
     "train_torch.py",
@@ -232,6 +253,53 @@ def test_tools_run_with_jax_pil_and_matplotlib_blocked(tmp_path):
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "ok"
     assert sorted(p.name for p in tmp_path.rglob("*.png")) == ["f_strip.png", "metrics.png", "shapes.png"]
+
+
+def test_uipc_scripts_run_with_jax_blocked():
+    """With importing jax and the JAX package made to raise: the UIPC modules
+    import, each new script prints its ``--help`` with ``--device``, runs
+    one step on the CPU when asked, and without a card its default device
+    (``cuda``) raises, as do ``UipcSim`` and ``UipcInteractiveScene``."""
+    code = BLOCKER + (
+        "import contextlib, importlib, inspect, io, runpy, torch\n"
+        f"for m in {UIPC_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from tacex_tpu_torch import uipc\n"
+        "for entry in (uipc.UipcSim, uipc.UipcInteractiveScene):\n"
+        "    assert inspect.signature(entry).parameters['device'].default == 'cuda', entry\n"
+        "card = torch.cuda.is_available()\n"
+        f"for script, argv in {UIPC_SCRIPTS!r}.items():\n"
+        "    main = runpy.run_path(script)['main']\n"
+        "    buf = io.StringIO()\n"
+        "    with contextlib.redirect_stdout(buf):\n"
+        "        try:\n"
+        "            main(['--help'])\n"
+        "        except SystemExit as e:\n"
+        "            assert e.code == 0, (script, e.code)\n"
+        "    assert '--device' in buf.getvalue(), script\n"
+        "    assert \"'--device', default='cuda'\" in open(script).read().replace('\"', \"'\"), script\n"
+        "    if not card:\n"
+        "        try:\n"
+        "            main(argv)\n"
+        "            raise AssertionError(script + ' ran without a card')\n"
+        "        except RuntimeError as e:\n"
+        "            assert 'no CUDA device' in str(e), (script, e)\n"
+        "    with contextlib.redirect_stdout(io.StringIO()):\n"
+        "        out = main(argv + ['--device', 'cpu'])\n"
+        "    assert out, script\n"
+        "if not card:\n"
+        "    for make in (lambda: uipc.UipcSim(uipc.UipcSimCfg()),\n"
+        "                 lambda: uipc.UipcInteractiveScene(uipc.UipcInteractiveSceneCfg(), {})):\n"
+        "        try:\n"
+        "            make()\n"
+        "            raise AssertionError('built without a card')\n"
+        "        except RuntimeError as e:\n"
+        "            assert 'no CUDA device' in str(e), e\n"
+        "print('ok')\n"
+    )
+    out = _python(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

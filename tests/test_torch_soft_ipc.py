@@ -201,27 +201,25 @@ def test_sphere_contact_force_matches_jax(pressed):
 
 
 def test_unported_branches_raise():
-    """Self, static-trimesh and edge-edge contact, shells, the broad-phase
-    counters and thread colliders are not ported: each raises, naming the
-    roadmap item, instead of being ignored."""
+    """Shells and thread colliders are not ported: each raises, naming the
+    roadmap item, instead of being ignored. Self, static-trimesh and
+    edge-edge contact and the broad-phase counters are ported (held to the
+    JAX package in ``test_torch_uipc_families.py``): they build and count."""
     mesh = tmesh.box_tet_mesh((0.01, 0.01, 0.004), (2, 2, 1))
 
     class Shells:
         num_tris = 1
 
-    for kw, what in (
-        (dict(cfg=tipc.IpcSolverCfg(self_contact_k=4)), "self contact"),
-        (dict(cfg=tipc.IpcSolverCfg(ee_contact_k=4)), "edge-edge"),
-        (dict(static_tris=np.zeros((1, 3, 3), np.float32)), "static trimesh"),
-        (dict(shell_elems=Shells()), "shell"),
-    ):
-        with pytest.raises(NotImplementedError, match=f"{what}.*Queue 1 item 8"):
-            tipc.SoftBodyModel(mesh, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="shell.*Queue 1 item 8b"):
+        tipc.SoftBodyModel(mesh, device="cpu", shell_elems=Shells())
+    families = tipc.SoftBodyModel(mesh, device="cpu", cfg=tipc.IpcSolverCfg(self_contact_k=4, ee_contact_k=4),
+                                  static_tris=np.zeros((1, 3, 3), np.float32))
+    counts = families.broad_phase_overflow(torch.from_numpy(mesh.points)[None])
+    assert sorted(counts) == ["ee", "vt_self", "vt_static"] and all(v.shape == (1,) for v in counts.values())
     model = tipc.SoftBodyModel(mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        model.broad_phase_overflow(torch.zeros((mesh.num_vertices, 3)))
+    assert model.broad_phase_overflow(torch.from_numpy(mesh.points)[None]) == {}
     scene = tipc.RigidSdfScene.empty(1, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8a"):
         model.step(tipc.SoftBodyState.init(1, mesh.points, device="cpu"),
                    tipc.RigidSdfScene(scene.spheres, scene.boxes, scene.capsules, scene.planes, torch.zeros((1, 1, 12))))
     state = tipc.SoftBodyState.init(1, mesh.points, device="cpu")

@@ -1,0 +1,28 @@
+"""Two FEM cube examples of the UIPC scene API on the port against their
+JAX scenes, at their own envs, meshes and settings for 2 steps on the CPU:
+``floating_cube`` (a cube hung from anchors on a circle, 2 envs) and
+``falling_gel_cubes`` (a cube dropped, 4 envs); the scenes and how they run
+are in ``_torch_uipc_examples``. Positions are held within
+``_torch_uipc_api.ATOL`` (1.5e-5 m).
+"""
+
+import numpy as np
+import pytest
+
+import _torch_uipc_examples as ex
+from _torch_bins import setup_torch
+from _torch_uipc_api import ATOL
+
+setup_torch()
+
+
+@pytest.mark.parametrize("script, jax_scene", [
+    ("examples/libuipc_samples/floating_cube_torch.py", ex.jax_floating_cube),
+    ("examples/falling_gel_cubes_torch.py", ex.jax_falling_cubes),
+], ids=["floating_cube", "falling_gel_cubes"])
+def test_example_matches_jax_scene(script, jax_scene):
+    out = ex.port(script)
+    x_j = jax_scene()
+    assert out["x"].shape == x_j.shape
+    np.testing.assert_allclose(out["x"], x_j, atol=ATOL, rtol=0)
+    assert np.isfinite(out["x"]).all() and out["ms_per_step"] > 0
