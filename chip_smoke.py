@@ -116,7 +116,7 @@ package beside this file; it imports nothing of JAX. In order it:
      frames; and K1 and K2 held to their plain versions and timed on the
      library's (26, 240, 320) frame and on the pressed sphere's 1- and 2-image
      frames (the follow-goal and pick-up demos' shapes);
- 19. (last) the UIPC scene API, which launches neither kernel: the six
+ 19. the UIPC scene API, which launches neither kernel: the six
      example scripts through ``main(argv)`` at their own envs and meshes,
      cut to 3 steps (2 for ``grasp_lift``; ``floating_cube`` ends with
      ``check_health``), with ms a step and finite positions; the union of
@@ -130,7 +130,20 @@ package beside this file; it imports nothing of JAX. In order it:
      (atol 1.5e-5 m); ``save_frame``/``replay_frame`` after a later step
      and write; ``step_n(4)`` against 4 ``step``s within 1e-6 (in
      deterministic mode); and ``ccd_envelope_torch``'s ``run`` at 0.8 m/s
-     (caught) and 1.6 m/s (tunnels) at dt 1/60.
+     (caught) and 1.6 m/s (tunnels) at dt 1/60;
+ 20. (last) the standalone ABD solve, which launches neither kernel: the
+     8-cube pile of ``benchmark_abd_pile_torch`` at 64 envs with the dense
+     Newton solve and with CG, each a warm step and 5 steps, the first
+     profiled (torch.profiler's device activities and busy share), the last
+     4 timed under sync-debug "error" (ms a step), with peak memory and the
+     broad-phase counts; envs 0-1 of the stepped pile taken one more step
+     on the card and on the CPU at the parity tests' 2 Newton x 6
+     line-search (x 3 CG) iterations (atol 1e-5 dense, 1e-4 CG), and the
+     same from the 8 cubes stacked in contact (within the larger of that
+     and 4x the CPU step's response to a 1e-7 jolt of its input);
+     ``wrecking_balls_torch`` (six bodies in the split ABD world of
+     ``UipcSim``) and ``screw_and_nut_torch`` (thread contact) at 3 steps,
+     with their broad-phase counts.
 
 Each phase prints its seconds. The second-to-last line is a JSON object with a row per kernel and shape:
 its launches on the main path that runs it at that shape, its error against
@@ -223,6 +236,11 @@ UIPC_EXAMPLES = {  # script -> steps in the phase (the scripts' own: 90, 150, 12
     "examples/grasp_lift_torch.py": 2,
 }
 STEP_N_STEPS = 4
+ABD_ENVS = 64  # scripts/benchmarking/benchmark_abd_pile.py's default
+ABD_STEPS = 5
+ABD_REF_CFG = dict(newton_max_iter=2, line_search_iters=6, cg_iters=3)  # tests/_torch_abd.py's iterations
+ABD_REF_ATOL = {"dense": 1e-5, "cg": 1e-4}  # tests/test_torch_abd_step.py
+ABD_SAMPLE_STEPS = 3
 WARMUP_STEPS = 2
 STEPS = 10
 KERNEL_ATOL = 1e-5
@@ -965,14 +983,17 @@ def _factory_action(n: int, device) -> torch.Tensor:
 
 def _launch_count(fn) -> tuple[int, float]:
     """CUDA device activities (kernels, memsets, copies) of one call of
-    ``fn`` and their summed device time in ms (torch.profiler)."""
+    ``fn`` and their summed device time in ms (torch.profiler). They are
+    read from the profiler's raw events: ``prof.events()`` gives the same
+    count and time but builds a Python object an event, ~70 s for the
+    ~0.5M activities of a CG step of the ABD pile (measured on the card)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return len(device), sum(e.time_range.elapsed_us() for e in device) / 1e3
+    device = [e for e in prof.profiler.kineto_results.events() if e.device_type() == torch.autograd.DeviceType.CUDA]
+    return len(device), sum(e.duration_ns() for e in device) / 1e6
 
 
 def factory_phase(device) -> dict:
@@ -2062,6 +2083,132 @@ def uipc_api_phase(device) -> dict:
     return out
 
 
+def _abd_stack(n: int, bodies: int = 8, seed: int = 5):
+    """numpy (q, qd) of the pile's cubes stacked in contact: each 0.6 mm over
+    the ground or the cube below (inside d_hat = 1 mm), turned by a seeded
+    5-20 mrad rotation, shifted up to 6 mm in x and y, falling at 5 cm/s."""
+    rng = np.random.default_rng(seed)
+    q = np.zeros((n, bodies, 12), np.float32)
+    for e in range(n):
+        for b in range(bodies):
+            axis = rng.normal(size=3)
+            axis /= np.linalg.norm(axis)
+            K = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+            a = rng.uniform(0.005, 0.02)
+            q[e, b, 3:] = (np.eye(3) + np.sin(a) * K + (1 - np.cos(a)) * K @ K).reshape(-1)
+            q[e, b, :2] = rng.uniform(-0.006, 0.006, 2)
+            q[e, b, 2] = 0.03 + 0.0006 + b * 0.0606
+    qd = np.zeros_like(q)
+    qd[..., 2] = -0.05
+    return q, qd
+
+
+def _abd_pile_run(solver: str, device) -> dict:
+    """The pile at ABD_ENVS envs with one solver: a warm step, then
+    ABD_STEPS steps: the first profiled, the others timed under sync-debug
+    "error"; then envs 0-1 taken one more step on the card and on the CPU
+    at ABD_REF_CFG."""
+    import runpy
+
+    from tacex_tpu_torch.physics.soft.abd import AbdState
+
+    pile = runpy.run_path(str(REPO / "scripts/benchmarking/benchmark_abd_pile_torch.py"))["pile"]
+    model, st, scene = pile(solver, ABD_ENVS, device=device)
+    st = model.step(st, scene)  # warm-up
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    box = {}
+    activities, device_ms = _launch_count(lambda: box.update(st=model.step(st, scene)))
+    st = box["st"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(ABD_STEPS - 1):
+            st = model.step(st, scene)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / (ABD_STEPS - 1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not bool(torch.isfinite(st.q).all()):
+        raise AssertionError(f"abd: the {solver} pile is not finite")
+    x = model.world_points(st.q)
+    lowest = float(scene.sdf(x).min())
+    if lowest < -1e-3:
+        raise AssertionError(f"abd: the {solver} pile went {-1e3 * lowest:.3f} mm into the ground")
+    overflow = {k: int(v.sum()) for k, v in model.broad_phase_overflow(x).items()}
+    # envs 0-1 one more step at the parity tests' iterations, on the card and on the CPU
+    card, _, card_scene = pile(solver, 2, device=device, **ABD_REF_CFG)
+    cpu, _, cpu_scene = pile(solver, 2, device="cpu", **ABD_REF_CFG)
+    two = AbdState(q=st.q[:2].clone(), qd=st.qd[:2].clone())
+    q_card = card.step(two, card_scene).q.cpu()
+    q_cpu = cpu.step(_state_to(two, "cpu"), cpu_scene).q
+    ref_err = float((q_card - q_cpu).abs().max())
+    moved = float((q_cpu - two.q.cpu()).abs().max())
+    if ref_err > ABD_REF_ATOL[solver]:
+        raise AssertionError(f"abd: envs 0-1 of the {solver} pile differ from the CPU by {ref_err:.3g}")
+    # the same in contact (``_abd_stack``), against the CPU step's own response
+    # to a 1e-7 jolt of its input (a stiff stack amplifies f32 rounding)
+    q0, qd0 = _abd_stack(2)
+    jolt = np.random.default_rng(1).normal(0, 1e-7, q0.shape).astype(np.float32)
+    steps = [cpu.step(AbdState(q=torch.from_numpy(q0 + d), qd=torch.from_numpy(qd0)), cpu_scene).q
+             for d in (0.0, jolt)]
+    noise = float((steps[1] - steps[0]).abs().max())
+    stack_card = card.step(AbdState(q=torch.from_numpy(q0).to(device), qd=torch.from_numpy(qd0).to(device)),
+                           card_scene).q.cpu()
+    stack_err = float((stack_card - steps[0]).abs().max())
+    stack_moved = float((steps[0] - torch.from_numpy(q0)).abs().max())
+    if stack_err > max(ABD_REF_ATOL[solver], 4.0 * noise):
+        raise AssertionError(f"abd: the {solver} stack in contact differs from the CPU by {stack_err:.3g} "
+                             f"(the CPU's response to a 1e-7 jolt: {noise:.3g})")
+    print(f"abd: pile of 8 cubes, {solver}, {ABD_ENVS} envs, {ABD_STEPS} steps (the first profiled, {ABD_STEPS - 1} "
+          f"timed with no host sync): {step_ms:.1f} ms a step (host clock, synchronised), {activities} device "
+          f"activities a step taking "
+          f"{device_ms:.1f} ms of device time (torch.profiler; {100.0 * device_ms / step_ms:.1f}% busy), peak memory "
+          f"{peak_gb:.3f} GB; lowest vertex {1e3 * lowest:.3f} mm over the ground; broad-phase drops {overflow}; "
+          f"envs 0-1 vs the CPU after one step at {ABD_REF_CFG}: {ref_err:.3g} (the step moved q by {moved:.3g}); "
+          f"stacked in contact: {stack_err:.3g} (moved {stack_moved:.3g}; the CPU's response to a 1e-7 jolt "
+          f"{noise:.3g})")
+    return dict(envs=ABD_ENVS, steps=ABD_STEPS, step_ms=step_ms, device_activities=activities, device_ms=device_ms,
+                device_busy=device_ms / step_ms, peak_gb=peak_gb, lowest_mm=1e3 * lowest, overflow=overflow,
+                cpu_max_err=ref_err, cpu_step_moved=moved, stack_cpu_max_err=stack_err, stack_moved=stack_moved,
+                stack_cpu_jolt=noise)
+
+
+def abd_phase(device) -> dict:
+    """The standalone ABD solve (no K1/K2 on its path): the 8-cube pile at
+    ABD_ENVS envs with the dense and the CG solve (``_abd_pile_run``), then
+    the split ABD world of ``wrecking_balls`` and the thread contact of
+    ``screw_and_nut`` at ABD_SAMPLE_STEPS steps, with their broad-phase
+    counts."""
+    import runpy
+
+    t_phase = time.perf_counter()
+    _reset_counters()
+    out = {solver: _abd_pile_run(solver, device) for solver in ("dense", "cg")}
+    for name in ("wrecking_balls", "screw_and_nut"):
+        t0 = time.perf_counter()
+        script = REPO / f"examples/libuipc_samples/{name}_torch.py"
+        r = runpy.run_path(str(script))["main"](["--steps", str(ABD_SAMPLE_STEPS), "--device", str(device)])
+        values = r["x"] if "x" in r else r["q"]
+        if not np.isfinite(values).all():
+            raise AssertionError(f"abd: {name} is not finite")
+        overflow = {k: v.tolist() for k, v in r["overflow"].items()}
+        out[name] = dict(steps=ABD_SAMPLE_STEPS, ms_per_step=r["ms_per_step"], overflow=overflow,
+                         seconds=time.perf_counter() - t0)
+        if name == "screw_and_nut":
+            out[name]["dz_mm"] = 1e3 * r["dz"]
+        print(f"abd: {name}: {ABD_SAMPLE_STEPS} steps, {r['ms_per_step']:.1f} ms a step (whole run "
+              f"{time.perf_counter() - t0:.1f} s); broad-phase drops {overflow}"
+              + (f"; screw advanced {1e3 * r['dz']:+.4f} mm" if name == "screw_and_nut" else ""))
+    if _read_counters() != {"deformation_pyramid": 0, "lut_shade": 0}:
+        raise AssertionError(f"abd: the ABD solve launched {_read_counters()}, expected no kernel")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"abd: phase {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2125,6 +2272,7 @@ def main() -> None:
     tools = phase("tools", tools_phase, device)
     coupled = phase("coupled", coupled_phase, device)
     uipc_api = phase("uipc_api", uipc_api_phase, device)
+    abd = phase("abd", abd_phase, device)
 
     kernels.update(factory.pop("kernels"))
     kernels.update(uipc.pop("kernels"))
@@ -2186,6 +2334,7 @@ def main() -> None:
         "tools": tools,
         "sensor_640x480_update_ms": calib["update_ms"],
         "uipc_api": uipc_api,
+        "abd": abd,
         "phase_seconds": seconds,
     }
     print(json.dumps(report))

@@ -75,7 +75,9 @@ def sdf_capsules(p: torch.Tensor, caps: torch.Tensor) -> torch.Tensor:
 
 
 def sdf_threads(p: torch.Tensor, threads: torch.Tensor) -> torch.Tensor:
-    """(P, 3) points vs (T, 12) helical threads -> (P, T) signed distances.
+    """(..., P, 3) points vs (..., T, 12) helical threads -> (..., P, T)
+    signed distances (leading axes as the other primitives': one set of
+    threads an env).
 
     A triangular thread profile swept along a helix, evaluated in helicoidal
     coordinates (u = z - pitch theta / 2 pi, folded to [0, pitch/2]) as the
@@ -86,47 +88,47 @@ def sdf_threads(p: torch.Tensor, threads: torch.Tensor) -> torch.Tensor:
     side = +1 an external thread (bolt), -1 an internal one (nut bore), 0
     disabled. Outside [z0, z1] the depth ramps to zero over pitch/2.
     """
-    base, axis = threads[:, 0:3], threads[:, 3:6]
-    r_mid, depth, pitch = threads[:, 6], threads[:, 7], threads[:, 8]
-    z0, z1, side = threads[:, 9], threads[:, 10], threads[:, 11]
+    base, axis = threads[..., 0:3], threads[..., 3:6]
+    # per-thread scalars as (..., 1, T) rows against the (..., P, T) grid
+    r_mid, depth, pitch, z0, z1, side = (threads[..., None, :, i] for i in range(6, 12))
     axis = axis / _safe_norm(axis)[..., None]
     # orthonormal frame per thread, seeded with the world axis least aligned
     # with the thread axis: x unless |axis.x| >= 0.9, then y
-    use_x = (axis[:, 0].abs() < 0.9).to(axis.dtype)
+    use_x = (axis[..., 0].abs() < 0.9).to(axis.dtype)
     seed = torch.stack([use_x, 1.0 - use_x, torch.zeros_like(use_x)], -1)
     b1 = torch.linalg.cross(axis, seed, dim=-1)
     b1 = b1 / _safe_norm(b1)[..., None]
     b2 = torch.linalg.cross(axis, b1, dim=-1)
 
-    rel = p[:, None, :] - base[None, :, :]  # (P, T, 3)
-    z = (rel * axis[None]).sum(-1)
-    x1 = (rel * b1[None]).sum(-1)
-    x2 = (rel * b2[None]).sum(-1)
+    rel = p[..., :, None, :] - base[..., None, :, :]  # (..., P, T, 3)
+    z = (rel * axis[..., None, :, :]).sum(-1)
+    x1 = (rel * b1[..., None, :, :]).sum(-1)
+    x2 = (rel * b2[..., None, :, :]).sum(-1)
     r2 = x1 * x1 + x2 * x2
     rr = torch.sqrt(r2 + 1e-20)
     # NaN-free atan2 gradient on the axis
     on_axis = r2 < 1e-16
     theta = torch.atan2(torch.where(on_axis, 0.0, x2), torch.where(on_axis, 1.0, x1))
 
-    pitch_s = torch.maximum(pitch, pitch.new_full((), 1e-9))[None, :]
+    pitch_s = torch.maximum(pitch, pitch.new_full((), 1e-9))
     u = z - pitch_s * theta / (2.0 * math.pi)
     f = u / pitch_s - torch.floor(u / pitch_s)  # frac in [0, 1)
     uf = torch.minimum(f, 1.0 - f) * pitch_s  # folded to [0, pitch/2]
 
-    ramp = _clip(1.0 + torch.minimum(z - z0[None, :], z1[None, :] - z) / (0.5 * pitch_s), 0.0, 1.0)
-    half_d = 0.5 * depth[None, :] * ramp * side[None, :]  # signed crest offset
+    ramp = _clip(1.0 + torch.minimum(z - z0, z1 - z) / (0.5 * pitch_s), 0.0, 1.0)
+    half_d = 0.5 * depth * ramp * side  # signed crest offset
 
     # 2D distance to the flank segment A = (0, r_mid + half_d) -> B = (pitch/2, r_mid - half_d)
-    ay = r_mid[None, :] + half_d
-    bx, by = 0.5 * pitch_s, r_mid[None, :] - half_d
+    ay = r_mid + half_d
+    bx, by = 0.5 * pitch_s, r_mid - half_d
     ex, ey = bx, by - ay
     px_, py = uf, rr - ay
     t = _clip((px_ * ex + py * ey) / (ex * ex + ey * ey + 1e-20), 0.0, 1.0)
     dx, dy = px_ - t * ex, py - t * ey
     dist = torch.sqrt(dx * dx + dy * dy + 1e-20)
     r_prof = ay + (by - ay) * (uf / (0.5 * pitch_s))
-    sign = torch.sign(side[None, :] * (rr - r_prof))
-    return torch.where(side[None, :] != 0, sign * dist, BIG)
+    sign = torch.sign(side * (rr - r_prof))
+    return torch.where(side != 0, sign * dist, BIG)
 
 
 def sdf_gear(p: torch.Tensor, gears: torch.Tensor) -> torch.Tensor:
@@ -161,11 +163,10 @@ def scene_sdf(
     boxes: torch.Tensor,
     capsules: torch.Tensor,
     planes: torch.Tensor,
-    threads: torch.Tensor | None = None,  # (T, 12); unbatched only
+    threads: torch.Tensor | None = None,  # (..., T, 12)
 ) -> torch.Tensor:
-    """(..., P) min signed distance of each point to the primitive soup. The
-    analytic primitives take leading batch axes (one soup an env); the
-    threads do not."""
+    """(..., P) min signed distance of each point to the primitive soup;
+    every primitive takes the same leading batch axes (one soup an env)."""
     parts = [sdf_spheres(p, spheres), sdf_boxes(p, boxes), sdf_capsules(p, capsules), sdf_planes(p, planes)]
     if threads is not None:
         parts.append(sdf_threads(p, threads))

@@ -27,8 +27,11 @@ crossing test).
 
 The FEM model's own families (self contact, which makes two gels of one
 union model meet, static triangles and edge-edge pairs) join the energy and
-the feasibility test as in ``SoftBodyModel``'s own solve.
-``broad_phase_overflow`` and ``missed_barriers`` count the pairs the
+the feasibility test as in ``SoftBodyModel``'s own solve, and so do the
+ABD model's body-body vertex-triangle pairs when ``contact_k > 0``: their
+barrier, their 1e-7 m distance floor and their co-moving crossing test (as
+in the JAX package, without pair friction or body-body edge-edge pairs
+here). ``broad_phase_overflow`` and ``missed_barriers`` count the pairs the
 fixed-capacity candidate sets dropped. The solve takes no substeps:
 ``ccd_substeps`` of the FEM model's cfg is not read, as in the JAX package
 (the UIPC scene API warns and applies one).
@@ -37,9 +40,6 @@ Envs never mix: every energy, mask and step length is per env, and
 choices are ``torch.where``, so ``step`` reads nothing back to the host.
 The candidate sets are chosen with a stable sort, which keeps the lower
 index among tied centroid distances, as ``jax.lax.top_k`` does.
-
-Not ported: ABD body-body contact (the ABD model raises for it, ROADMAP
-Queue 1 item 8a).
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ from types import SimpleNamespace
 
 import torch
 
-from .abd import AbdModel, AbdState, inverse3, ortho_hessian, q_to_affine
+from .abd import AbdModel, AbdState, inverse3, q_to_affine
 from .ipc import (
     RigidSdfScene,
     SoftBodyModel,
@@ -132,9 +132,9 @@ class CoupledModel:
     def broad_phase_overflow(self, x: torch.Tensor, q: torch.Tensor) -> dict[str, torch.Tensor]:
         """Within-reach candidates dropped past the K nearest, per env
         (x (N, V, 3), q (N, B, 12)) -> {key: (N,) int64}: both cross
-        families (``vt_cross_a``, ``vt_cross_b``) and the FEM model's own
-        (``SoftBodyModel.broad_phase_overflow``). The ABD model has no
-        family of its own here (body-body contact is not ported)."""
+        families (``vt_cross_a``, ``vt_cross_b``), the FEM model's own
+        (``SoftBodyModel.broad_phase_overflow``) and the ABD model's, its
+        keys prefixed ``abd_`` (``AbdModel.broad_phase_overflow``)."""
         c = self.fem.cfg
         xs = x.index_select(1, self.fem.surface_verts)
         y = self.abd.world_points(q)
@@ -147,6 +147,7 @@ class CoupledModel:
             within = (_sq_dist(p, cent) < cut * cut).sum(-1)
             out[key] = torch.clamp(within - min(self.cross_k, cent.shape[1]), min=0).sum(-1)
         out.update(self.fem.broad_phase_overflow(x))
+        out.update({f"abd_{k}": v for k, v in self.abd.broad_phase_overflow(y).items()})
         return out
 
     def missed_barriers(self, x: torch.Tensor, q: torch.Tensor, reach_frac: float = 0.5) -> torch.Tensor:
@@ -258,6 +259,7 @@ class CoupledModel:
         tbA = abd.tri_body[candA]  # (N, Vs, K)
         cand = (idxA, validA, idxB, validB, tbA)
         fam = fem._families(x)  # the FEM model's self, static and edge-edge families
+        abd_cand = abd._select_candidates(y0) if ca.contact_k > 0 else None  # body-body pairs
 
         def unpack(z):
             return z[:, : 3 * V].unflatten(1, (V, 3)), z[:, 3 * V :].unflatten(1, (B, 12))
@@ -276,15 +278,11 @@ class CoupledModel:
             fl, al, cl = lags
             xx, qq = unpack(z)
             e = fem._energy(xx, x_tilde, scene, aim_pos, x, fl, c.dt, fam)
-            e = e + abd._energy(qq, q_tilde, scene, aim_q, aim_strength, y0, al)
+            e = e + abd._energy(qq, q_tilde, scene, aim_q, aim_strength, y0, al, abd_cand)
             return e + self._cross_energy(xx, qq, cand, cl, xs0, y0)
 
-        # ABD block preconditioner: each body's 12x12 smooth-part inverse
-        Hd = (abd.mass / ca.dt**2).expand(n, B, 12, 12).clone()
-        Hd[..., 3:, 3:] += ortho_hessian(q, abd.kappa_ortho)
-        m_body = abd.mass[:, 0, 0][:, None]
-        Hd = Hd + torch.diag_embed(aim_strength * m_body / ca.dt**2) + 1e-6 * self._eye12
-        Hd_inv = torch.linalg.inv_ex(Hd).inverse  # (N, B, 12, 12)
+        # ABD block preconditioner: each body's 12x12 smooth-part inverse (N, B, 12, 12)
+        Hd_inv = torch.linalg.inv_ex(abd._smooth_blocks(q, aim_strength) + 1e-6 * self._eye12).inverse
 
         def precond(r):
             rx, rq = r[:, : 3 * V], r[:, 3 * V :].unflatten(1, (B, 12))
@@ -311,6 +309,15 @@ class CoupledModel:
             ok = (scene.sdf(xs_t).amin(-1) > d_floor) & (scene.sdf(y_t).amin(-1) > d_floor_abd)
             if fam is not None:
                 ok = ok & fem._family_feasible(fam, xx, xs_t, xf, xs_f)
+            if abd_cand is not None:
+                ci, vld = abd_cand
+                ok = ok & (torch.where(vld, abd._pair_distances(y_t, ci), 1.0).amin((-2, -1)) > 1e-7)
+                tri, tri0 = abd._tri_rows(y_t, ci), abd._tri_rows(y_f, ci)
+                crossed = _segment_crosses_moving_triangle(
+                    y_f[:, :, None, :], y_t[:, :, None, :], tri0[..., 0, :], tri0[..., 1, :], tri0[..., 2, :],
+                    tri[..., 0, :], tri[..., 1, :], tri[..., 2, :],
+                )
+                ok = ok & ~(crossed & vld).flatten(1).any(-1)
             triA, triA0 = _gather(y_t, idxA), _gather(y_f, idxA)
             triB, triB0 = _gather(xx, idxB), _gather(xf, idxB)
             dA, dB = self._cross_distances(xs_t, y_t, triA, triB)

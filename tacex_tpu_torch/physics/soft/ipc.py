@@ -332,7 +332,7 @@ class RigidSdfScene:
     threads: torch.Tensor | None = None  # (N, T, 12)
 
     @staticmethod
-    def empty(num_envs: int, s=1, b=1, c=1, p=1, device=DEFAULT_DEVICE) -> "RigidSdfScene":
+    def empty(num_envs: int, s=1, b=1, c=1, p=1, t=0, device=DEFAULT_DEVICE) -> "RigidSdfScene":
         n = num_envs
         dev = resolve(device)
         return RigidSdfScene(
@@ -340,17 +340,13 @@ class RigidSdfScene:
             boxes=torch.zeros((n, b, 10), device=dev),
             capsules=torch.zeros((n, c, 8), device=dev),
             planes=torch.zeros((n, p, 4), device=dev),
+            threads=torch.zeros((n, t, 12), device=dev) if t else None,
         )
 
     def sdf(self, p: torch.Tensor) -> torch.Tensor:
         """(N, P, 3) points -> (N, P) scene signed distance, each env's
-        points against its own colliders."""
-        if self.threads is not None:
-            raise NotImplementedError(
-                "thread colliders in the soft-body scene are not ported yet "
-                "(ROADMAP Queue 1 item 8a: the ABD solve and screw_and_nut)"
-            )
-        return sdf_ops.scene_sdf(p, self.spheres, self.boxes, self.capsules, self.planes)
+        points against its own colliders (threads included)."""
+        return sdf_ops.scene_sdf(p, self.spheres, self.boxes, self.capsules, self.planes, self.threads)
 
     def requires_grad(self) -> bool:
         return any(getattr(self, f.name) is not None and getattr(self, f.name).requires_grad

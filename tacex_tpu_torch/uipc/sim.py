@@ -3,7 +3,8 @@
 Port of ``tacex_tpu/uipc/sim.py``: ``UipcSimCfg`` (the reference's solver
 knobs) and ``UipcSim`` (register objects, ``setup_sim``, ``step``,
 ``step_n``, render sync, save/replay, health checks), simulating N envs at
-once on one device. ``setup_sim`` builds one of three worlds:
+once on one device. ``setup_sim`` builds one of three worlds for the FEM
+objects:
 
   * each FEM object with its own model (no object-object contact);
   * one union model of every FEM object, with self contact, when
@@ -13,9 +14,14 @@ once on one device. ``setup_sim`` builds one of three worlds:
     objects and affine bodies and ``contact.coupling_k > 0``: one Newton
     solve over the union of the FEM objects and every affine body.
 
-Not ported (they raise ``NotImplementedError``): the split ABD solve
-(affine bodies outside the coupled world, ROADMAP Queue 1 item 8a) and
-shell objects (item 8b).
+Outside the coupled world every affine body joins one ABD model stepped by
+its own solve (``AbdModel.step``), with body-body contact when there are
+two or more (``contact.abd_contact_k``) and kinematic bodies held by strong
+soft-transform constraints (and seen by the FEM models as static trimesh
+colliders).
+
+Not ported (they raise ``NotImplementedError``): shell objects (ROADMAP
+Queue 1 item 8b).
 
 Device work and host reads: ``step`` reads nothing back inside its solves;
 it synchronises once at its end, for its timing report, as the JAX
@@ -473,8 +479,8 @@ class UipcSim:
         return aim
 
     def _advance_abd(self, scene: RigidSdfScene) -> None:
-        """The split ABD solve (affine bodies outside the coupled world):
-        ``AbdModel.step`` raises, ROADMAP Queue 1 item 8a."""
+        """The split ABD solve: the affine bodies outside the coupled world,
+        one ``AbdModel.step`` against the frame's scene."""
         aim = self._advance_abd_aims()
         self._abd_state = self._abd_model.step(self._abd_state, scene, aim, self._abd_strength)
 
@@ -501,7 +507,8 @@ class UipcSim:
         """Per family and env, the within-reach contact candidates the
         fixed-capacity broad phase dropped this frame -> {key: (N,) int}:
         ``vt_self``, ``vt_static``, ``ee`` of the union model (of a
-        standalone object, prefixed ``obj{i}_``), and ``vt_cross_a`` /
+        standalone object, prefixed ``obj{i}_``), ``abd_vt_body`` /
+        ``abd_ee`` of the affine bodies, and ``vt_cross_a`` /
         ``vt_cross_b`` of the coupled world. Nonzero means a pair within
         reach got no barrier: raise the matching ``*_k``."""
         if self._coupled is not None:
@@ -510,6 +517,9 @@ class UipcSim:
             parts = []
             if self._union_model is not None:
                 parts.append(("", self._union_model.broad_phase_overflow(self._union_state.x)))
+            if self._abd_model is not None:
+                m = self._abd_model
+                parts.append(("abd_", m.broad_phase_overflow(m.world_points(self._abd_state.q))))
             for i, obj in enumerate(self.objects):
                 if obj.model is not None and obj._union_range is None:
                     parts.append((f"obj{i}_", obj.model.broad_phase_overflow(obj.state.x)))

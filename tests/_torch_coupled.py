@@ -14,9 +14,10 @@ by ``envs.convert.state_from_numpy``, and both take one more step.
 The JAX reference step: the JAX env's own ``step``, run eagerly with its
 decimation loop (``jax.lax.fori_loop``) as a Python loop, and its
 ``CoupledModel.step`` one jitted function shared by every env of a family
-(Grasp-Lift, Factory-UIPC) in the process (``jax_step``). Tracing and
-compiling the coupled solve costs ~25 s on the CPU; a jit of the whole env
-step would pay it again for each id.
+(Grasp-Lift, Factory-UIPC) in the process (``jax_step``), as one jit of
+its single-env ``_step_single`` called env by env (``per_env_step``).
+Tracing and compiling the coupled solve costs ~20 s on the CPU; a jit of
+the whole env step would pay it again for each id.
 
 Tolerances:
   * gel positions ``GEL_ATOL`` = 1.5e-5 m, the drift of two f32 CG solves
@@ -41,6 +42,8 @@ import jax
 import jax.numpy as jnp
 
 from tacex_tpu import envs as jenvs
+from tacex_tpu.physics.soft import abd as jabd
+from tacex_tpu.physics.soft import ipc as jipc
 from tacex_tpu_torch import envs as tenvs
 from tacex_tpu_torch.envs.convert import state_from_numpy
 
@@ -110,14 +113,41 @@ def _with_real_loops(fn):
     return traced
 
 
+def per_env_step(world):
+    """``world.step`` (``CoupledModel.step``) as one jit of its
+    ``_step_single`` called env by env: ``step`` is that function's
+    ``vmap`` over the envs with these defaults, and the batching pass adds
+    ~5 s to the trace (the two agree bit for bit on these scenes)."""
+    single = jax.jit(_with_real_loops(world._step_single))
+
+    def step(fem_state, abd_state, scene, aim_pos=None, aim_q=None, aim_strength=None):
+        n, B = fem_state.x.shape[0], world.abd.num_bodies
+        if aim_pos is None:
+            aim_pos = jnp.zeros((n, max(int(world.fem.attachment_verts.shape[0]), 1), 3))
+        if aim_q is None:
+            aim_q = abd_state.q
+        if aim_strength is None:
+            aim_strength = jnp.zeros((n, B, 12))
+        elif aim_strength.ndim == 2:
+            aim_strength = jnp.broadcast_to(aim_strength[..., None], (n, B, 12))
+        outs = [single(fem_state.x[e], fem_state.v[e], abd_state.q[e], abd_state.qd[e],
+                       jax.tree_util.tree_map(lambda a: a[e], scene), aim_pos[e], aim_q[e], aim_strength[e])
+                for e in range(n)]
+        x, v, q, qd = (jnp.stack(parts) for parts in zip(*outs))
+        return jipc.SoftBodyState(x=x, v=v), jabd.AbdState(q=q, qd=qd)
+
+    return step
+
+
 def _share_world(env_j):
     """Give the JAX env its family's coupled world, whose ``step`` is jitted
-    once for the process: the family's envs at ``overrides`` build equal
-    worlds (the ids differ only in their observations)."""
+    once for the process (``per_env_step``): the family's envs at
+    ``overrides`` build equal worlds (the ids differ only in their
+    observations)."""
     key = (type(env_j), env_j.cfg.num_envs, env_j.cfg.newton_iters, env_j.cfg.cg_iters, env_j.cfg.coupling_k)
     if key not in _WORLDS:
         world = env_j.world
-        world.step = jax.jit(_with_real_loops(world.step))
+        world.step = per_env_step(world)
         _WORLDS[key] = world
     env_j.world = _WORLDS[key]
 

@@ -225,11 +225,16 @@ def test_ortho_hessian_and_inverse(bodies):
 
 
 def test_unported_abd_branches_raise():
+    """The body-body branches of ROADMAP item 8a are ported: a model with
+    vertex-triangle (or edge-edge) candidates builds, counts its broad
+    phase, and ``AbdModel.step`` (the standalone solve) runs: a free cube
+    falls under gravity by g dt^2 in one step."""
     pts, tris = tcube()
-    for kw, what in ((dict(contact_k=8, ee_contact_k=0), "body-body contact"),
-                     (dict(contact_k=0, ee_contact_k=4), "edge-edge")):
-        with pytest.raises(NotImplementedError, match=f"{what}.*Queue 1 item 8"):
-            tabd.AbdModel([pts], [tris], cfg=tabd.AbdSolverCfg(**kw), device="cpu")
-    m = tabd.AbdModel([pts], [tris], cfg=tabd.AbdSolverCfg(contact_k=0, ee_contact_k=0), device="cpu")
-    with pytest.raises(NotImplementedError, match="standalone"):
-        m.step(tabd.AbdState.identity(1, 1, device="cpu"), tipc.RigidSdfScene.empty(1, device="cpu"))
+    for kw, keys in ((dict(contact_k=8, ee_contact_k=0), ["vt_body"]), (dict(contact_k=0, ee_contact_k=4), [])):
+        m = tabd.AbdModel([pts, pts + 1.0], [tris, tris], cfg=tabd.AbdSolverCfg(**kw), device="cpu")
+        st = tabd.AbdState.identity(1, 2, device="cpu")
+        assert sorted(m.broad_phase_overflow(m.world_points(st.q))) == keys
+    m = tabd.AbdModel([pts], [tris], cfg=tabd.AbdSolverCfg(contact_k=0, ee_contact_k=0, newton_max_iter=2), device="cpu")
+    st = m.step(tabd.AbdState.identity(1, 1, device="cpu"), tipc.RigidSdfScene.empty(1, device="cpu"))
+    np.testing.assert_allclose(st.q[0, 0, 2].item(), -9.81 * m.cfg.dt**2, rtol=1e-3)
+    assert torch.isfinite(st.q).all() and float(st.q[0, 0, :2].abs().max()) < 1e-9

@@ -98,6 +98,13 @@ UIPC_SCRIPTS = {
     "examples/single_uipc_attachment_torch.py": ["--steps", "1"],
     "examples/grasp_lift_torch.py": ["--steps", "0"],  # its coupled world built; a step costs ~5 s here
     "scripts/benchmarking/ccd_envelope_torch.py": ["--dts", "0.1", "--velocities", "1.0"],
+    # the affine-body samples built, not stepped, and the ABD pile benchmark one step of one Newton iteration
+    "examples/libuipc_samples/ramp_sliding_torch.py": ["--steps", "0"],
+    "examples/libuipc_samples/walking_cube_torch.py": ["--steps", "0"],
+    "examples/libuipc_samples/wrecking_balls_torch.py": ["--steps", "0"],
+    "examples/libuipc_samples/screw_and_nut_torch.py": ["--steps", "0"],
+    "scripts/benchmarking/benchmark_abd_pile_torch.py": ["--envs", "1", "--steps", "1", "--solver", "cg",
+                                                         "--newton_iters", "1"],
 }
 # the slice's scripts, under scripts/
 TOOL_SCRIPTS = [

@@ -201,10 +201,12 @@ def test_sphere_contact_force_matches_jax(pressed):
 
 
 def test_unported_branches_raise():
-    """Shells and thread colliders are not ported: each raises, naming the
-    roadmap item, instead of being ignored. Self, static-trimesh and
-    edge-edge contact and the broad-phase counters are ported (held to the
-    JAX package in ``test_torch_uipc_families.py``): they build and count."""
+    """Shells are not ported: they raise, naming the roadmap item, instead
+    of being ignored. Self, static-trimesh and edge-edge contact and the
+    broad-phase counters are ported (held to the JAX package in
+    ``test_torch_uipc_families.py``): they build and count; a scene with a
+    thread collider steps (held to the JAX package in
+    ``test_torch_abd_threads.py``)."""
     mesh = tmesh.box_tet_mesh((0.01, 0.01, 0.004), (2, 2, 1))
 
     class Shells:
@@ -219,9 +221,11 @@ def test_unported_branches_raise():
     model = tipc.SoftBodyModel(mesh, device="cpu")
     assert model.broad_phase_overflow(torch.from_numpy(mesh.points)[None]) == {}
     scene = tipc.RigidSdfScene.empty(1, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8a"):
-        model.step(tipc.SoftBodyState.init(1, mesh.points, device="cpu"),
-                   tipc.RigidSdfScene(scene.spheres, scene.boxes, scene.capsules, scene.planes, torch.zeros((1, 1, 12))))
+    # thread colliders (ROADMAP item 8a) are ported: a disabled thread leaves the free fall as it was
+    threaded = tipc.RigidSdfScene(scene.spheres, scene.boxes, scene.capsules, scene.planes, torch.zeros((1, 1, 12)))
+    free = model.step(tipc.SoftBodyState.init(1, mesh.points, device="cpu"), scene)
+    np.testing.assert_array_equal(
+        model.step(tipc.SoftBodyState.init(1, mesh.points, device="cpu"), threaded).x.numpy(), free.x.numpy())
     state = tipc.SoftBodyState.init(1, mesh.points, device="cpu")
     with pytest.raises(RuntimeError, match="no gradient"):
         model.step(tipc.SoftBodyState(x=state.x.requires_grad_(True), v=state.v), scene)

@@ -195,25 +195,33 @@ def test_step_n_rejects_live_providers():
 
 
 def test_unported_worlds_raise():
-    """Affine bodies outside the coupled world (the split ABD solve) raise
-    naming ROADMAP item 8a, at setup for body-body contact or at the first
-    step; shell objects raise naming item 8b."""
-    sim = T.UipcSim(T.UipcSimCfg(num_envs=1), device="cpu")
+    """The worlds of ROADMAP item 8a now step: a lone dynamic affine body
+    (the split ABD solve), two of them (with body-body contact) and a FEM
+    object beside an affine body outside the coupled world (``coupling_k =
+    0``); each body falls under gravity. Shell objects still raise, naming
+    item 8b."""
+    sim = T.UipcSim(T.UipcSimCfg(num_envs=1, newton=T.UipcSimCfg.Newton(max_iter=2)), device="cpu")
     T.UipcObject(_cube(T, kinematic=False), sim)
     sim.setup_sim()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8a"):
-        sim.step()
-    sim = T.UipcSim(T.UipcSimCfg(num_envs=1), device="cpu")
+    sim.step()
+    assert sim._abd_state.q[0, 0, 2].item() < 0.0 and sim._abd_model.cfg.contact_k == 0
+    sim = T.UipcSim(T.UipcSimCfg(num_envs=1, newton=T.UipcSimCfg.Newton(max_iter=2)), device="cpu")
     T.UipcObject(_cube(T, kinematic=False), sim)
     T.UipcObject(_cube(T, kinematic=False, center=(0.05, 0.0, 0.0)), sim)
-    with pytest.raises(NotImplementedError, match="body-body contact.*Queue 1 item 8a"):
-        sim.setup_sim()
-    sim = T.UipcSim(T.UipcSimCfg(num_envs=1, contact=T.UipcSimCfg.Contact(coupling_k=0)), device="cpu")
-    T.UipcObject(T.UipcObjectCfg(mesh_cfg=T.objects.TetMeshCfg(size=(0.02, 0.02, 0.004), resolution=(2, 2, 1))), sim)
+    sim.setup_sim()
+    assert sim._abd_model.cfg.contact_k == 8 and sim._abd_model._ee_on
+    sim.step()
+    assert (sim._abd_state.q[0, :, 2] < 0.0).all()
+    assert sorted(sim.broad_phase_overflow()) == ["abd_ee", "abd_vt_body"]
+    sim = T.UipcSim(T.UipcSimCfg(num_envs=1, newton=T.UipcSimCfg.Newton(max_iter=2),
+                                 contact=T.UipcSimCfg.Contact(coupling_k=0)), device="cpu")
+    gel = T.UipcObject(T.UipcObjectCfg(mesh_cfg=T.objects.TetMeshCfg(size=(0.02, 0.02, 0.004), resolution=(2, 2, 1))),
+                       sim)
     T.UipcObject(_cube(T, kinematic=False, center=(0.0, 0.0, 0.05)), sim)
     sim.setup_sim()
-    with pytest.raises(NotImplementedError, match="standalone.*Queue 1 item 8a"):
-        sim.step()
+    assert sim._coupled is None
+    sim.step()
+    assert sim._abd_state.q[0, 0, 2].item() < 0.0 and gel.root_pos_w[0, 2].item() < 0.0
     sim = T.UipcSim(T.UipcSimCfg(num_envs=1), device="cpu")
     pts = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32)
     T.UipcObject(T.UipcObjectCfg(constitution=T.NeoHookeanShellCfg()), sim, points=pts, triangles=np.array([[0, 1, 2]]))

@@ -3,7 +3,9 @@ port against the JAX package: the pressed two-gel union of
 ``_torch_contact`` (self contact and edge-edge contact at K = 4) and a free
 6 mm affine cube 0.3 mm above the top slab (the cross families), one
 ``CoupledModel.step`` at 3 Newton x 8 CG iterations with the convergence
-stop off. The JAX step is one jit (~20 s of trace and compile on the CPU).
+stop off. The JAX step is ``_torch_coupled.per_env_step`` (one jit of
+``CoupledModel._step_single`` called env by env, ~20 s of trace and
+compile on the CPU).
 
 Tolerances (f32): gel positions ``_torch_contact.ATOL`` (1.5e-5 m) and
 velocities that over dt; the cube's q 1.5e-5 (``tests/_torch_coupled.py``'s
@@ -21,6 +23,7 @@ import jax.numpy as jnp
 
 from _torch_bins import setup_torch
 from _torch_contact import ATOL, GAP, LOWER, N, SIZE, as_torch, pressed, union_models
+from _torch_coupled import per_env_step
 from tacex_tpu.physics.soft import abd as jabd
 from tacex_tpu.physics.soft import coupled as jcoupled
 from tacex_tpu.physics.soft import ipc as jipc
@@ -64,7 +67,7 @@ def stepped():
     model_j, *_ = union_models(**FAMILIES)
     world_j = jcoupled.CoupledModel(model_j, jabd.AbdModel([CUBE_PTS], [CUBE_TRIS], cfg=jabd.AbdSolverCfg(**ABD_CFG)))
     x, v, q, qd, aim = _inputs()
-    fj, aj = jax.jit(world_j.step)(jipc.SoftBodyState(x=jnp.asarray(x), v=jnp.asarray(v)),
+    fj, aj = per_env_step(world_j)(jipc.SoftBodyState(x=jnp.asarray(x), v=jnp.asarray(v)),
                                    jabd.AbdState(q=jnp.asarray(q), qd=jnp.asarray(qd)), jipc.RigidSdfScene.empty(N),
                                    jnp.asarray(aim))
     world_t = _port_world()

@@ -6,7 +6,9 @@ the JAX script's scene built here as the script builds it (its ``main()``
 takes no arguments), at the script's own 8 Newton x 24 CG iterations.
 Tolerances: the pads' positions ``_torch_uipc_api.ATOL`` (1.5e-5 m), the
 cube's pose 1.5e-5 (``tests/_torch_coupled.py``'s Q_ATOL). The JAX side
-traces and compiles its coupled solve once (~20 s on the CPU).
+traces and compiles its coupled solve once (~20 s on the CPU), as
+``_torch_coupled.per_env_step`` in place of the sim's jit of the vmapped
+``CoupledModel.step``.
 """
 
 import runpy
@@ -16,6 +18,7 @@ import numpy as np
 import jax.numpy as jnp
 
 from _torch_bins import setup_torch
+from _torch_coupled import per_env_step
 from _torch_uipc_api import ATOL, J
 
 setup_torch()
@@ -52,6 +55,7 @@ def _jax_scene():
         pad.set_attachments(c["mount"], aim_provider=provider)
     sim.setup_sim()
     assert sim._coupled is not None
+    sim._coupled_step_fn = per_env_step(sim._coupled)
     for i in range(STEPS):
         SCRIPT["advance_ctrl"](ctrl, i)
         sim.step()
