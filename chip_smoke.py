@@ -3,7 +3,8 @@
 PPO training on it, the other ball-rolling tasks, every shading path, the
 Factory tasks, pole balancing, SAC, the soft FEM gel pad of the UIPC
 ball-rolling tasks, the user-facing tools and demos, the coupled FEM+ABD
-world of the Grasp-Lift and Factory-UIPC tasks, and the UIPC scene API.
+world of the Grasp-Lift and Factory-UIPC tasks, the UIPC scene API, the
+standalone ABD solve and shells (cloth).
 
     python3 chip_smoke.py
 
@@ -98,7 +99,7 @@ package beside this file; it imports nothing of JAX. In order it:
      8 CG (gel, cube q, reward, grip, and the tactile image of the CPU's gel
      under the bin rule; at the registered iterations it prints how far a
      2e-9 m jolt of the gel moves the CPU's own step); the scripted
-     squeeze of ``-Uipc-v0`` (action [1, 0], 3 steps: the cube must stay
+     squeeze of ``-Uipc-v0`` (action [1, 0], 2 steps: the cube must stay
      above -3 mm); and 1 step each of ``-Uipc-Depth-v0`` and both
      Factory-UIPC ids under sync-debug "error";
  18. (before step 17) the user-facing tools, each through its script's entry
@@ -118,7 +119,7 @@ package beside this file; it imports nothing of JAX. In order it:
      frames (the follow-goal and pick-up demos' shapes);
  19. the UIPC scene API, which launches neither kernel: the six
      example scripts through ``main(argv)`` at their own envs and meshes,
-     cut to 3 steps (2 for ``grasp_lift``; ``floating_cube`` ends with
+     cut to 2 steps (``floating_cube`` ends with
      ``check_health``), with ms a step and finite positions; the union of
      two ``TetMeshCfg()`` gel pads (396 vertices each) with self and
      edge-edge contact at K = 4 at 16 envs, the top pad driven down onto
@@ -131,11 +132,11 @@ package beside this file; it imports nothing of JAX. In order it:
      and write; ``step_n(4)`` against 4 ``step``s within 1e-6 (in
      deterministic mode); and ``ccd_envelope_torch``'s ``run`` at 0.8 m/s
      (caught) and 1.6 m/s (tunnels) at dt 1/60;
- 20. (last) the standalone ABD solve, which launches neither kernel: the
+ 20. the standalone ABD solve, which launches neither kernel: the
      8-cube pile of ``benchmark_abd_pile_torch`` at 64 envs with the dense
-     Newton solve and with CG, each a warm step and 5 steps, the first
+     Newton solve and with CG, each a warm step and 4 steps, the first
      profiled (torch.profiler's device activities and busy share), the last
-     4 timed under sync-debug "error" (ms a step), with peak memory and the
+     3 timed under sync-debug "error" (ms a step), with peak memory and the
      broad-phase counts; envs 0-1 of the stepped pile taken one more step
      on the card and on the CPU at the parity tests' 2 Newton x 6
      line-search (x 3 CG) iterations (atol 1e-5 dense, 1e-4 CG), and the
@@ -143,7 +144,21 @@ package beside this file; it imports nothing of JAX. In order it:
      and 4x the CPU step's response to a 1e-7 jolt of its input);
      ``wrecking_balls_torch`` (six bodies in the split ABD world of
      ``UipcSim``) and ``screw_and_nut_torch`` (thread contact) at 3 steps,
-     with their broad-phase counts.
+     with their broad-phase counts;
+ 21. (last) shells, which launch neither kernel: the standalone
+     ``ShellModel`` on ``grid_cloth()``'s 20 x 20 cloth of 2 m (400
+     vertices, 722 triangles; the bunny-cloth sample's constitution) over a
+     320-triangle icosphere soup 1.5 mm under it and the ground at 64 envs:
+     a warm step, then 4 steps under sync-debug "error", the first profiled
+     (torch.profiler's device activities and busy share), the other 3 timed
+     (ms a step), peak memory, the clearance to the soup; envs 0-1 taken one
+     more step on the card and on the CPU at the parity tests' 2 Newton x 6
+     CG x 4 line-search iterations (within 1e-5 m, or 4x the CPU step's own
+     response to a 1e-7 m jolt where that is larger); ``cloth_trampoline_torch``
+     (cloth and a free cube in the coupled world) and ``bunny_cloth_torch``
+     (a standalone cloth over a kinematic body) at 3 steps each; and a lone
+     20 x 20 cloth with self contact through the union at 16 envs, 2 steps,
+     with its broad-phase counts.
 
 Each phase prints its seconds. The second-to-last line is a JSON object with a row per kernel and shape:
 its launches on the main path that runs it at that shape, its error against
@@ -206,7 +221,7 @@ REF_NEWTON_ITERS = 2
 REF_CG_ITERS = 8
 COUPLED_STEPS = 2  # few: a step takes 12-20 s, and the whole run stays under 900 s
 COUPLED_OTHER_STEPS = 1
-SQUEEZE_STEPS = 3  # as COUPLED_STEPS
+SQUEEZE_STEPS = 2  # as COUPLED_STEPS
 CALIB_ENVS = 4
 # the tools phase: the scripts' own default sizes (scripts/demos, scripts/benchmarking)
 TOOLS_RES = (240, 320)
@@ -228,19 +243,27 @@ UIPC_API_DROP = 4e-4  # m a step, the top pad's attachment
 UIPC_API_REF_AFTER = 3  # the card's step after which 2 envs are carried to the CPU for one step
 UIPC_API_ATOL = 1.5e-5  # m: two f32 solves of one step (tests/_torch_uipc_api.py)
 UIPC_EXAMPLES = {  # script -> steps in the phase (the scripts' own: 90, 150, 120, 60, 40, 130; ~2 s a step)
-    "examples/libuipc_samples/hello_uipc_torch.py": 3,
-    "examples/libuipc_samples/floating_cube_torch.py": 3,
-    "examples/libuipc_samples/periodically_pressed_tetrahedron_torch.py": 3,
-    "examples/falling_gel_cubes_torch.py": 3,
-    "examples/single_uipc_attachment_torch.py": 3,
+    "examples/libuipc_samples/hello_uipc_torch.py": 2,
+    "examples/libuipc_samples/floating_cube_torch.py": 2,
+    "examples/libuipc_samples/periodically_pressed_tetrahedron_torch.py": 2,
+    "examples/falling_gel_cubes_torch.py": 2,
+    "examples/single_uipc_attachment_torch.py": 2,
     "examples/grasp_lift_torch.py": 2,
 }
 STEP_N_STEPS = 4
 ABD_ENVS = 64  # scripts/benchmarking/benchmark_abd_pile.py's default
-ABD_STEPS = 5
+ABD_STEPS = 4  # the first profiled
 ABD_REF_CFG = dict(newton_max_iter=2, line_search_iters=6, cg_iters=3)  # tests/_torch_abd.py's iterations
 ABD_REF_ATOL = {"dense": 1e-5, "cg": 1e-4}  # tests/test_torch_abd_step.py
 ABD_SAMPLE_STEPS = 3
+SHELL_ENVS = 64  # the abd phase's batch
+SHELL_STEPS = 4  # under sync-debug "error" after a warm step: the first profiled, the others timed
+SHELL_SOUP_GAP = 1.5e-3  # m: the cloth over the soup's top vertex, inside d_hat (2 mm)
+SHELL_REF_CFG = dict(newton_max_iter=2, cg_iters=6, line_search_iters=4, velocity_tol=0.0)  # tests/_torch_shell.py
+SHELL_REF_ATOL = 1e-5  # m, or 4x the CPU step's response to a 1e-7 m jolt where that is larger
+SHELL_SCENE_STEPS = 3
+SHELL_UNION_ENVS = 16
+SHELL_UNION_STEPS = 2
 WARMUP_STEPS = 2
 STEPS = 10
 KERNEL_ATOL = 1e-5
@@ -2209,6 +2232,172 @@ def abd_phase(device) -> dict:
     return out
 
 
+def _shell_start(n: int, seed: int = 7):
+    """numpy (points (N, V, 3), static soup (Ts, 3, 3)) of the shell phase's
+    scene: ``grid_cloth()``'s 20 x 20 cloth of 2 m (400 vertices, 722
+    triangles) over an icosphere soup of radius 0.5 m whose top vertex lies
+    SHELL_SOUP_GAP under the cloth, each env's cloth shifted by up to 2 cm
+    in x and y (seeded)."""
+    from tacex_tpu_torch.assets.meshes import icosphere
+    from tacex_tpu_torch.physics.soft.shell import grid_cloth
+
+    P, T = grid_cloth()
+    soup = np.asarray(icosphere(0.5, 2), np.float32)
+    soup[..., 2] += np.float32(P[0, 2] - SHELL_SOUP_GAP - soup[..., 2].max())
+    shift = np.random.default_rng(seed).uniform(-0.02, 0.02, (n, 1, 3)).astype(np.float32)
+    shift[..., 2] = 0.0
+    return P[None] + shift, T, soup
+
+
+def _shell_model(device, **cfg):
+    """The phase's ``ShellModel`` (the bunny-cloth sample's constitution,
+    ``ShellSolverCfg`` defaults unless ``cfg`` says otherwise) and its scene
+    (the ground) for n envs."""
+    from tacex_tpu_torch.physics.soft.ipc import RigidSdfScene
+    from tacex_tpu_torch.physics.soft.shell import ShellModel, ShellSolverCfg
+
+    pts, tris, soup = _shell_start(1)
+    model = ShellModel(pts[0], tris, youngs_modulus=1e4, poisson_ratio=0.3, thickness=0.001, mass_density=200.0,
+                       bending_stiffness=10.0, cfg=ShellSolverCfg(**cfg), static_tris=soup, device=device)
+
+    def scene(n):
+        sc = RigidSdfScene.empty(n, device=device)
+        planes = torch.zeros_like(sc.planes)
+        planes[..., 2] = 1.0
+        return dataclasses.replace(sc, planes=planes)
+
+    return model, scene
+
+
+def _shell_clearance(model, x) -> float:
+    """The cloth's least distance to its K nearest soup triangles (m)."""
+    from tacex_tpu_torch.physics.soft.ipc import _nearest, _sq_dist
+
+    cand = _nearest(_sq_dist(x, model.static_cent[None]), model.cfg.static_contact_k)[1]
+    return float(model._static_distances(x, model.static_tris[cand]).min())
+
+
+def shell_phase(device) -> dict:
+    """Shells (no K1/K2 on their path): the standalone ``ShellModel`` on the
+    20 x 20 cloth over the soup and the ground at SHELL_ENVS envs (a warm
+    step, then SHELL_STEPS under sync-debug "error": the first profiled,
+    the others timed), envs 0-1
+    one more step on the card and on the CPU at SHELL_REF_CFG; the two cloth
+    scenes at SHELL_SCENE_STEPS steps; a lone cloth with self contact
+    through the union at SHELL_UNION_ENVS envs, SHELL_UNION_STEPS steps,
+    with its broad-phase counts."""
+    import runpy
+
+    from tacex_tpu_torch.physics.soft.ipc import SoftBodyState
+
+    t_phase = time.perf_counter()
+    _reset_counters()
+    out = {}
+    model, scene_of = _shell_model(device)
+    pts, _, _ = _shell_start(SHELL_ENVS)
+    x0 = torch.as_tensor(pts, device=device)
+    st, scene = SoftBodyState(x=x0.clone(), v=torch.zeros_like(x0)), scene_of(SHELL_ENVS)
+    st = model.step(st, scene)  # warm-up
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    box = {}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        activities, device_ms = _launch_count(lambda: box.update(st=model.step(st, scene)))
+        st = box["st"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SHELL_STEPS - 1):
+            st = model.step(st, scene)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    step_ms = 1e3 * (time.perf_counter() - t0) / (SHELL_STEPS - 1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not bool(torch.isfinite(st.x).all()):
+        raise AssertionError("shell: the cloth is not finite")
+    clearance = _shell_clearance(model, st.x)
+    fell = float((x0[..., 2] - st.x[..., 2]).mean())
+    if clearance <= 0.0 or fell <= 0.0:
+        raise AssertionError(f"shell: clearance to the soup {clearance:.3g} m, mean fall {fell:.3g} m")
+    # envs 0-1 one more step at the parity tests' iterations, on the card and on the CPU
+    card, _ = _shell_model(device, **SHELL_REF_CFG)
+    cpu, cpu_scene_of = _shell_model("cpu", **SHELL_REF_CFG)
+    two = SoftBodyState(x=st.x[:2].clone(), v=st.v[:2].clone())
+    x_card = card.step(two, scene_of(2)).x.cpu()
+    two_cpu = _state_to(two, "cpu")
+    x_cpu = cpu.step(two_cpu, cpu_scene_of(2)).x
+    ref_err = float((x_card - x_cpu).abs().max())
+    moved = float((x_cpu - two_cpu.x).abs().max())
+    # the CPU step's own response to a 1e-7 m jolt of its input: the float noise of the solve
+    jolt = torch.from_numpy(np.random.default_rng(1).normal(0, 1e-7, tuple(two_cpu.x.shape)).astype(np.float32))
+    noise = float((cpu.step(SoftBodyState(x=two_cpu.x + jolt, v=two_cpu.v), cpu_scene_of(2)).x - x_cpu).abs().max())
+    if ref_err > max(SHELL_REF_ATOL, 4.0 * noise):
+        raise AssertionError(f"shell: envs 0-1 differ from the CPU by {ref_err:.3g} m (the CPU's response to a "
+                             f"1e-7 m jolt: {noise:.3g} m)")
+    out["standalone"] = dict(envs=SHELL_ENVS, vertices=model.num_vertices, triangles=int(model.tris.shape[0]),
+                             steps=SHELL_STEPS, step_ms=step_ms, device_activities=activities, device_ms=device_ms,
+                             device_busy=device_ms / step_ms, peak_gb=peak_gb, clearance_mm=1e3 * clearance,
+                             cpu_max_err=ref_err, cpu_step_moved=moved, cpu_jolt=noise)
+    print(f"shell: standalone ShellModel, {model.num_vertices} vertices, {int(model.tris.shape[0])} triangles, "
+          f"{SHELL_ENVS} envs, {SHELL_STEPS} steps with no host sync (the first profiled, {SHELL_STEPS - 1} timed): "
+          f"{step_ms:.1f} ms a step (host clock, "
+          f"synchronised), {activities} device activities a step taking {device_ms:.1f} ms of device time "
+          f"(torch.profiler; {100.0 * device_ms / step_ms:.1f}% busy), peak memory {peak_gb:.3f} GB; clearance to "
+          f"the soup {1e3 * clearance:.3f} mm; envs 0-1 vs the CPU after one step at {SHELL_REF_CFG}: {ref_err:.3g} m "
+          f"(the step moved {moved:.3g} m; the CPU's response to a 1e-7 m jolt {noise:.3g} m)")
+    for rel in ("examples/cloth_trampoline_torch.py", "examples/libuipc_samples/bunny_cloth_torch.py"):
+        t0 = time.perf_counter()
+        r = runpy.run_path(str(REPO / rel))["main"](["--steps", str(SHELL_SCENE_STEPS), "--device", str(device)])
+        if not np.isfinite(r["x"]).all():
+            raise AssertionError(f"shell: {rel} is not finite")
+        name = Path(rel).stem
+        out[name] = dict(steps=SHELL_SCENE_STEPS, ms_per_step=r["ms_per_step"], seconds=time.perf_counter() - t0)
+        print(f"shell: {name}: {SHELL_SCENE_STEPS} steps, {r['ms_per_step']:.1f} ms a step (whole run "
+              f"{time.perf_counter() - t0:.1f} s)")
+    out["union"] = _shell_union_run(device)
+    if _read_counters() != {"deformation_pyramid": 0, "lut_shade": 0}:
+        raise AssertionError(f"shell: the shell solves launched {_read_counters()}, expected no kernel")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"shell: phase {out['seconds']:.1f} s")
+    return out
+
+
+def _shell_union_run(device) -> dict:
+    """A lone 20 x 20 cloth of 0.4 m with self contact (K = 4) over the
+    bunny-cloth sample's kinematic icosphere: ``UipcSim`` routes it through
+    the union model, the body its static soup. SHELL_UNION_STEPS steps at
+    SHELL_UNION_ENVS envs, ms a step and the broad-phase counts."""
+    from tacex_tpu_torch.assets.meshes import icosphere, weld_soup
+    from tacex_tpu_torch.physics.soft.shell import grid_cloth
+    from tacex_tpu_torch.uipc import UipcObject, UipcObjectCfg, UipcSim, UipcSimCfg
+    from tacex_tpu_torch.uipc.objects import AffineBodyConstitutionCfg, NeoHookeanShellCfg
+
+    sim = UipcSim(UipcSimCfg(num_envs=SHELL_UNION_ENVS, dt=0.01, enable_ground=True,
+                             contact=UipcSimCfg.Contact(d_hat=0.004, self_contact_k=4)), device=device)
+    bp, bt = weld_soup(icosphere(0.1, 1))
+    UipcObject(UipcObjectCfg(constitution=AffineBodyConstitutionCfg(kinematic=True)), sim,
+               points=bp + np.array([0.0, 0.0, 0.1], np.float32), triangles=bt)
+    cp, ct = grid_cloth(20, 20, size=0.4, z=0.21)
+    cloth = UipcObject(UipcObjectCfg(constitution=NeoHookeanShellCfg(), mass_density=200.0), sim,
+                       points=cp, triangles=ct)
+    sim.setup_sim()
+    if cloth._union_range is None:
+        raise AssertionError("shell: the self-contact cloth did not join the union")
+    t0 = time.perf_counter()
+    for _ in range(SHELL_UNION_STEPS):
+        sim.step()
+    step_ms = 1e3 * (time.perf_counter() - t0) / SHELL_UNION_STEPS
+    x = cloth.nodal_pos_w
+    if not bool(torch.isfinite(x).all()):
+        raise AssertionError("shell: the union cloth is not finite")
+    overflow = {k: int(v.sum()) for k, v in sim.broad_phase_overflow().items()}
+    print(f"shell: a lone cloth with self contact through the union, 400 vertices, {SHELL_UNION_ENVS} envs, "
+          f"{SHELL_UNION_STEPS} steps: {step_ms:.1f} ms a step (host clock, synchronised); broad-phase drops "
+          f"{overflow}")
+    return dict(envs=SHELL_UNION_ENVS, steps=SHELL_UNION_STEPS, step_ms=step_ms, overflow=overflow)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2273,6 +2462,7 @@ def main() -> None:
     coupled = phase("coupled", coupled_phase, device)
     uipc_api = phase("uipc_api", uipc_api_phase, device)
     abd = phase("abd", abd_phase, device)
+    shell = phase("shell", shell_phase, device)
 
     kernels.update(factory.pop("kernels"))
     kernels.update(uipc.pop("kernels"))
@@ -2335,6 +2525,7 @@ def main() -> None:
         "sensor_640x480_update_ms": calib["update_ms"],
         "uipc_api": uipc_api,
         "abd": abd,
+        "shell": shell,
         "phase_seconds": seconds,
     }
     print(json.dumps(report))

@@ -41,8 +41,10 @@ edge through an edge. ``broad_phase_overflow`` counts the pairs within
 reach that the fixed-capacity candidate sets dropped. The coupled FEM+ABD
 world (``coupled.py``) builds on the same pieces.
 
-Not ported: shell elements (``shell_elems``), which raise
-``NotImplementedError`` naming their ROADMAP item.
+Shell (cloth) elements join a model through ``shell_elems`` (``codim.py``):
+their membrane and bending energies over the same vertex array, their
+masses added to the tets' lumped masses, so that cloth takes part in every
+contact family as the union's and the coupled world's nodal system.
 """
 
 from __future__ import annotations
@@ -57,10 +59,9 @@ import torch
 from ...core.config import configclass
 from ...core.device import DEFAULT_DEVICE, resolve
 from ...ops import sdf as sdf_ops
+from .codim import ShellElements, ShellElementsTorch, bending_energy, membrane_energy
 from .fem import lame_params, lumped_masses, precompute_rest, stable_neo_hookean_energy
 from .mesh import TetMesh
-
-UNPORTED = "is not ported yet (ROADMAP Queue 1 item 8b: shells, codim.py and the cloth scenes)"
 
 
 def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
@@ -441,15 +442,13 @@ class SoftBodyModel:
         attachment_verts: np.ndarray | None = None,
         attachment_strength_ratio=100.0,  # scalar or (Va,)
         static_tris: np.ndarray | None = None,
-        shell_elems=None,
+        shell_elems: ShellElements | None = None,  # membrane and bending elements over the same vertices
         device=DEFAULT_DEVICE,
     ):
         self.mesh = mesh
         self.cfg = cfg or IpcSolverCfg()
         self.device = dev = resolve(device)
         c = self.cfg
-        if shell_elems is not None and shell_elems.num_tris > 0:
-            raise NotImplementedError(f"shell elements (shell_elems) {UNPORTED}")
 
         f32 = dict(dtype=torch.float32, device=dev)
         mu, lam = lame_params(youngs_modulus, poisson_ratio)
@@ -460,7 +459,11 @@ class SoftBodyModel:
         self.dm_inv = torch.as_tensor(dm_inv, **f32)
         self.rest_vol = torch.as_tensor(vol, **f32)
         masses = np.asarray(lumped_masses(mesh.points, mesh.tets, mass_density))
-        assert (masses > 0).all(), "zero-mass vertex: every vertex must belong to a tet"
+        self.shell = None
+        if shell_elems is not None and shell_elems.num_tris > 0:
+            self.shell = ShellElementsTorch(shell_elems, dev)
+            masses = masses + np.asarray(shell_elems.masses)
+        assert (masses > 0).all(), "zero-mass vertex: every vertex must belong to a tet or a shell element"
         self.masses = torch.as_tensor(masses, **f32)  # (V,)
         sv = np.asarray(mesh.surface_verts, np.int64)
         self.surface_verts = torch.as_tensor(sv, device=dev)
@@ -496,7 +499,7 @@ class SoftBodyModel:
             st64 = np.asarray(static_tris, np.float64)
             self._static_radius_max = float(np.linalg.norm(st64 - st64.mean(1, keepdims=True), axis=-1).max())
 
-        # attachments: soft position constraints of strength ratio x m_i / dt^2
+        # attachments: soft position constraints of strength ratio x m_i / dt^2 (shell masses included)
         if attachment_verts is None:
             attachment_verts = np.zeros((0,), np.int64)
         attachment_verts = np.asarray(attachment_verts, np.int64)
@@ -671,6 +674,8 @@ class SoftBodyModel:
         c = self.cfg
         inertia = (0.5 / dt**2) * (self.masses[:, None] * (x - x_tilde) ** 2).sum((-2, -1))
         elastic = stable_neo_hookean_energy(x, self.tets, self.dm_inv, self.rest_vol, self.mu, self.lam)
+        if self.shell is not None:
+            elastic = elastic + membrane_energy(x, self.shell) + bending_energy(x, self.shell)
         xs = x.index_select(1, self.surface_verts)
         d = scene.sdf(xs)
         e = inertia + elastic + barrier_extended(d, c.kappa, c.d_hat).sum(-1)

@@ -3,12 +3,10 @@
 Port of ``tacex_tpu/uipc/objects.py``. The cfgs mirror the reference's
 ``UipcObjectCfg`` (constitution, tet-mesh provisioning, mass density,
 attachments); a ``UipcObject`` registers with a ``UipcSim``, which
-finalises it in ``setup_sim`` (its own FEM model, a view into the sim's
-union model, or an affine body of the sim's ABD model). Every object is
-batched over the sim's envs: its state is (N, V, 3) on the sim's device.
-
-Shell (cloth) objects are accepted as meshes but their solve is not ported:
-finalising one raises ``NotImplementedError`` (ROADMAP Queue 1 item 8b).
+finalises it in ``setup_sim`` (its own FEM model or, for a cloth, its own
+``ShellModel``; a view into the sim's union model; or an affine body of
+the sim's ABD model). Every object is batched over the sim's envs: its
+state is (N, V, 3) on the sim's device.
 """
 
 from __future__ import annotations
@@ -22,8 +20,7 @@ from ..core.config import configclass
 from ..physics.soft.abd import inverse3
 from ..physics.soft.ipc import RigidSdfScene, SoftBodyModel, SoftBodyState
 from ..physics.soft.mesh import TetMesh, box_tet_mesh, extract_surface
-
-SHELLS_UNPORTED = "shell (cloth) objects are not ported yet (ROADMAP Queue 1 item 8b: shells, codim.py and the cloth scenes)"
+from ..physics.soft.shell import ShellModel
 
 
 @configclass
@@ -194,12 +191,27 @@ class UipcObject:
         return self._rest_aim_t
 
     def _finalize(self, sim, static_tris=None) -> None:
+        con = self.cfg.constitution
         if self.is_shell:
-            raise NotImplementedError(SHELLS_UNPORTED)
+            self.model = ShellModel(
+                self.mesh.points,
+                self.mesh.surface_tris,
+                youngs_modulus=con.youngs_modulus * 1e6,  # MPa -> Pa
+                poisson_ratio=con.poisson_rate,
+                thickness=con.thickness,
+                mass_density=self.cfg.mass_density,
+                bending_stiffness=con.bending_E,
+                cfg=sim.cfg.to_shell_cfg(),
+                static_tris=static_tris,
+                attachment_verts=self._attachment_verts,
+                attachment_strength_ratio=self._attachment_strength,
+                device=self.device,
+            )
+            self.state = SoftBodyState.init(sim.cfg.num_envs, self.mesh.points, device=self.device)
+            return
         assert isinstance(self.cfg.constitution, StableNeoHookeanCfg), (
             "affine bodies are finalized by UipcSim._setup_abd"
         )
-        con = self.cfg.constitution
         self.model = SoftBodyModel(
             self.mesh,
             youngs_modulus=con.youngs_modulus * 1e6,  # MPa -> Pa
@@ -236,11 +248,11 @@ class UipcObject:
         return None
 
     def _advance(self, scene: RigidSdfScene, scene_prev: RigidSdfScene | None = None) -> None:
-        """One step of this object's own model; with ``scene_prev`` its
-        colliders (and attachment targets) are swept from the previous frame
-        when the solver substeps."""
+        """One step of this object's own model; with ``scene_prev`` a FEM
+        body's colliders (and attachment targets) are swept from the previous
+        frame when the solver substeps (a shell's solve does not substep)."""
         aim = self._aim()
-        if scene_prev is not None:
+        if scene_prev is not None and not self.is_shell:
             self.state = self.model.step(self.state, scene, aim, scene_prev, self._aim_prev)
         else:
             self.state = self.model.step(self.state, scene, aim)
@@ -250,6 +262,8 @@ class UipcObject:
     def surface_positions(self) -> torch.Tensor:
         if self.is_affine_body:
             return self.sim.abd_vertex_positions(self)
+        if self.is_shell and self._union_range is None:
+            return self.model.surface_positions(self.state)
         return self.state.x.index_select(1, self._surface_verts)
 
     @property

@@ -3,25 +3,28 @@
 Port of ``tacex_tpu/uipc/sim.py``: ``UipcSimCfg`` (the reference's solver
 knobs) and ``UipcSim`` (register objects, ``setup_sim``, ``step``,
 ``step_n``, render sync, save/replay, health checks), simulating N envs at
-once on one device. ``setup_sim`` builds one of three worlds for the FEM
-objects:
+once on one device. ``setup_sim`` builds one of three worlds for the
+nodal objects (FEM bodies and shells, one vertex array with tet and shell
+elements):
 
-  * each FEM object with its own model (no object-object contact);
-  * one union model of every FEM object, with self contact, when
-    ``contact.self_contact_k > 0`` and there are two or more: gel against
-    gel through the vertex-triangle (and edge-edge) families;
-  * the coupled FEM+ABD world (``CoupledModel``) when the scene has FEM
-    objects and affine bodies and ``contact.coupling_k > 0``: one Newton
-    solve over the union of the FEM objects and every affine body.
+  * each object with its own model (no object-object contact): a
+    ``SoftBodyModel`` for a FEM body, a ``ShellModel`` for a cloth;
+  * one union model of every nodal object, with self contact, when
+    ``contact.self_contact_k > 0`` and there are two or more, or any shell
+    (a lone cloth folding onto itself): gel against gel, cloth against gel
+    and cloth against itself through the vertex-triangle (and edge-edge)
+    families;
+  * the coupled FEM+ABD world (``CoupledModel``) when the scene has nodal
+    objects and affine bodies, ``contact.coupling_k > 0``, and a FEM body
+    or a dynamic affine body: one Newton solve over the union of the nodal
+    objects and every affine body. A lone cloth over kinematic bodies keeps
+    its standalone solve.
 
 Outside the coupled world every affine body joins one ABD model stepped by
 its own solve (``AbdModel.step``), with body-body contact when there are
 two or more (``contact.abd_contact_k``) and kinematic bodies held by strong
 soft-transform constraints (and seen by the FEM models as static trimesh
-colliders).
-
-Not ported (they raise ``NotImplementedError``): shell objects (ROADMAP
-Queue 1 item 8b).
+colliders). Shells outside the union see them the same way.
 
 Device work and host reads: ``step`` reads nothing back inside its solves;
 it synchronises once at its end, for its timing report, as the JAX
@@ -44,10 +47,11 @@ import torch
 from ..core.config import configclass
 from ..core.device import DEFAULT_DEVICE, resolve
 from ..physics.soft.abd import AbdModel, AbdSolverCfg, AbdState, _mesh_moments, rotate_target, rotation_about
+from ..physics.soft.codim import build_shell_elements, merge_shell_elements
 from ..physics.soft.coupled import CoupledModel
 from ..physics.soft.ipc import IpcSolverCfg, RigidSdfScene, SoftBodyModel, SoftBodyState, scene_motion
 from ..physics.soft.mesh import union_meshes
-from .objects import SHELLS_UNPORTED
+from ..physics.soft.shell import ShellSolverCfg
 
 
 @configclass
@@ -128,8 +132,19 @@ class UipcSimCfg:
         if self.contact is None:
             self.contact = UipcSimCfg.Contact()
 
-    def to_shell_cfg(self):
-        raise NotImplementedError(SHELLS_UNPORTED)
+    def to_shell_cfg(self) -> ShellSolverCfg:
+        return ShellSolverCfg(
+            dt=self.dt,
+            gravity=tuple(self.gravity),
+            newton_max_iter=self.newton.max_iter,
+            velocity_tol=self.newton.velocity_tol,
+            cg_iters=self.linear_system.max_iter,
+            line_search_iters=self.line_search.max_iter,
+            d_hat=self.contact.d_hat,
+            kappa=self.contact.resistance,
+            friction_mu=(self.contact.default_friction_ratio if self.contact.friction else 0.0),
+            eps_velocity=self.contact.eps_velocity,
+        )
 
     def to_solver_cfg(self) -> IpcSolverCfg:
         return IpcSolverCfg(
@@ -185,27 +200,34 @@ class UipcSim:
     def setup_sim(self) -> None:
         """Finalise the scene: build the world's solver models (see the
         module docstring for the three worlds). Kinematic affine bodies
-        become static trimesh colliders of the FEM models outside the
+        become static trimesh colliders of the nodal models outside the
         coupled world."""
         self._union_model = self._union_state = self._coupled = None
         self._scene_prev = self._union_aim_prev = None
         fem_objs = [o for o in self.objects if not (o.is_affine_body or o.is_shell)]
         abd_objs = [o for o in self.objects if o.is_affine_body]
-        if any(o.is_shell for o in self.objects):
-            raise NotImplementedError(SHELLS_UNPORTED)
+        shell_objs = [o for o in self.objects if o.is_shell]
+        nodal_objs = fem_objs + shell_objs  # one vertex array, tet and shell elements
         static = [np.asarray(o.mesh.points, np.float32)[np.asarray(o.mesh.surface_tris)]
                   for o in abd_objs if o.cfg.constitution.kinematic]
         static_tris = np.concatenate(static) if static else None
         c = self.cfg.contact
-        couple = bool(c.enable and c.coupling_k > 0 and fem_objs and abd_objs)
+        any_dynamic_abd = any(not o.cfg.constitution.kinematic for o in abd_objs)
+        couple = bool(c.enable and c.coupling_k > 0 and nodal_objs and abd_objs and (fem_objs or any_dynamic_abd))
+        in_union: list[Any] = []
         if couple:
-            self._setup_union(fem_objs, static_tris=None)
+            self._setup_union(nodal_objs, static_tris=None)
             self._setup_abd(abd_objs)
             self._coupled = CoupledModel(self._union_model, self._abd_model, cross_k=c.coupling_k)
-        elif c.self_contact_k > 0 and len(fem_objs) >= 2:
-            self._setup_union(fem_objs, static_tris=static_tris)
+            in_union = nodal_objs
+        elif c.self_contact_k > 0 and (len(nodal_objs) >= 2 or shell_objs):
+            self._setup_union(nodal_objs, static_tris=static_tris)
+            in_union = nodal_objs
         else:
             for obj in fem_objs:
+                obj._finalize(self, static_tris=static_tris)
+        for obj in shell_objs:
+            if obj not in in_union:
                 obj._finalize(self, static_tris=static_tris)
         if abd_objs and not couple:
             self._setup_abd(abd_objs)
@@ -309,10 +331,18 @@ class UipcSim:
 
     def _setup_union(self, objects, static_tris=None) -> None:
         mesh, offsets = union_meshes([o.mesh for o in objects])
-        youngs, poisson, density, att_verts, att_ratio = [], [], [], [], []
+        youngs, poisson, density, att_verts, att_ratio, shell_parts = [], [], [], [], [], []
         self._union_aim_objs = []
         for i, obj in enumerate(objects):
             con = obj.cfg.constitution
+            if obj.is_shell:
+                # membrane and bending elements with the union's vertex ids (a
+                # shell's mesh has no tets; its triangles are the union's surface)
+                shell_parts.append(build_shell_elements(
+                    obj.mesh.points, obj.mesh.surface_tris, youngs_modulus=con.youngs_modulus * 1e6,  # MPa -> Pa
+                    poisson_ratio=con.poisson_rate, thickness=con.thickness, mass_density=obj.cfg.mass_density,
+                    bending_stiffness=con.bending_E, num_vertices=mesh.num_vertices, vertex_offset=int(offsets[i]),
+                ))
             nt = obj.mesh.tets.shape[0]
             youngs.append(np.full(nt, getattr(con, "youngs_modulus", 0.1) * 1e6, np.float32))
             poisson.append(np.full(nt, getattr(con, "poisson_rate", 0.45), np.float32))
@@ -330,6 +360,7 @@ class UipcSim:
             attachment_verts=np.concatenate(att_verts).astype(np.int32) if att_verts else None,
             attachment_strength_ratio=np.concatenate(att_ratio) if att_ratio else 100.0,
             static_tris=static_tris,
+            shell_elems=merge_shell_elements(shell_parts, mesh.num_vertices) if shell_parts else None,
             device=self.device,
         )
         self._union_state = SoftBodyState.init(self.cfg.num_envs, mesh.points, device=self.device)
@@ -339,11 +370,17 @@ class UipcSim:
 
     def _sanity_check(self) -> None:
         """Validate the scene before solving: positive tet volumes and masses,
-        d_hat at most twice the smallest edge, attachment ids in range, and a
-        positive volume for each affine body's closed surface."""
+        d_hat at most twice the smallest edge, attachment ids in range, a
+        positive volume for each affine body's closed surface, and positive
+        shell vertex masses (``build_shell_elements`` rejects a degenerate
+        rest triangle)."""
         problems: list[str] = []
         for i, obj in enumerate(self.objects):
             mesh = obj.mesh
+            if obj.is_shell:
+                if obj.model is not None and float(obj.model.masses.min()) <= 0:
+                    problems.append(f"object {i}: non-positive shell vertex mass")
+                continue
             if obj.is_affine_body:
                 vol, _, _ = _mesh_moments(np.asarray(mesh.points, np.float64), np.asarray(mesh.surface_tris, np.int64))
                 if vol <= 0:
@@ -398,11 +435,13 @@ class UipcSim:
                 self._union_state, self._abd_state, scene, aim, abd_aim, self._abd_strength
             )
             self._refresh_union_slices()
+            self._advance_standalone_shells(scene)
         elif self._union_model is not None:
             aim = self._union_aim()
             self._union_state = self._union_model.step(self._union_state, scene, aim, scene_prev, self._union_aim_prev)
             self._union_aim_prev = aim
             self._refresh_union_slices()
+            self._advance_standalone_shells(scene)
         else:
             for obj in self.objects:
                 if not obj.is_affine_body:
@@ -454,6 +493,12 @@ class UipcSim:
         self._synchronize()
         self._timings["step_n"] = time.perf_counter() - t0
         self._frame_counter += n_steps
+
+    def _advance_standalone_shells(self, scene: RigidSdfScene) -> None:
+        """One step of each shell outside the union (beside a coupled or union world)."""
+        for obj in self.objects:
+            if obj.is_shell and obj._union_range is None:
+                obj._advance(scene)
 
     def _refresh_union_slices(self) -> None:
         for obj in self._union_objs:
@@ -521,7 +566,7 @@ class UipcSim:
                 m = self._abd_model
                 parts.append(("abd_", m.broad_phase_overflow(m.world_points(self._abd_state.q))))
             for i, obj in enumerate(self.objects):
-                if obj.model is not None and obj._union_range is None:
+                if obj.model is not None and obj._union_range is None and hasattr(obj.model, "broad_phase_overflow"):
                     parts.append((f"obj{i}_", obj.model.broad_phase_overflow(obj.state.x)))
         return {prefix + k: v.cpu().numpy() for prefix, counts in parts for k, v in counts.items()}
 

@@ -34,6 +34,42 @@ def numpy(a) -> np.ndarray:
     return a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
+def per_env_step(model):
+    """A JAX ``SoftBodyModel.step`` at one substep (or ``ShellModel.step``)
+    as one jit of its ``_step_single`` called env by env, in the call
+    signature of ``UipcSim``'s union step and ``UipcObject._advance``:
+    ``step`` is that function's ``vmap``, whose batching pass costs ~2-10 s
+    more to trace and compile on these scenes."""
+    import jax
+
+    from tacex_tpu.physics.soft import ipc as jipc
+
+    assert getattr(model.cfg, "ccd_substeps", 1) <= 1
+    single = jax.jit(model._step_single)
+
+    def step(state, scene, aim_pos=None, scene_prev=None, aim_prev=None):
+        n = state.x.shape[0]
+        if aim_pos is None:
+            aim_pos = jnp.zeros((n, max(int(model.attachment_verts.shape[0]), 1), 3))
+        outs = [single(state.x[e], state.v[e], jax.tree_util.tree_map(lambda a: a[e], scene), aim_pos[e])
+                for e in range(n)]
+        x, v = (jnp.stack(parts) for parts in zip(*outs))
+        return jipc.SoftBodyState(x=x, v=v)
+
+    return step
+
+
+def single_env_steps(sim):
+    """Step a set-up JAX ``UipcSim``'s FEM objects and union model through
+    ``per_env_step`` (where they solve at one substep)."""
+    if sim._union_model is not None and sim._union_model.cfg.ccd_substeps <= 1:
+        sim._union_step_fn = per_env_step(sim._union_model)
+    for obj in sim.objects:
+        if type(obj.model).__name__ == "SoftBodyModel" and obj.model.cfg.ccd_substeps <= 1:
+            obj._step = per_env_step(obj.model)
+    return sim
+
+
 def build_gel(M, num_envs=2, cg_iters=8):
     """``tests/test_uipc_api.py``'s scene: a 20 x 25 x 4.5 mm gel of (4, 5, 2)
     cells under an attachment at its top face (z = 0), 4 Newton x

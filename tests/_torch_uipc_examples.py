@@ -7,7 +7,7 @@ hung from anchors on a circle, 2 envs), ``periodically_pressed_tetrahedron``
 dropped, 4 envs). The port's scripts run in-process through ``main(argv)``
 with ``--steps 2 --device cpu``; the JAX scripts' ``main()`` takes no
 arguments and runs the full length, so each JAX scene is built here as its
-script builds it.
+script builds it, its FEM models stepped through ``single_env_steps``.
 """
 
 import runpy
@@ -16,7 +16,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from _torch_uipc_api import J
+from _torch_uipc_api import J, single_env_steps
 
 STEPS = 2
 
@@ -32,6 +32,7 @@ def jax_hello():
     tet = J.UipcObject(J.UipcObjectCfg(constitution=J.StableNeoHookeanCfg(youngs_modulus=0.1)), sim, points=points,
                        tets=np.array([[1, 0, 2, 3]], np.int32))
     sim.setup_sim()
+    single_env_steps(sim)
     for _ in range(STEPS):
         sim.step()
     return np.asarray(tet.nodal_pos_w)
@@ -54,6 +55,7 @@ def jax_floating_cube():
 
     cube.set_attachments(top, aim_provider=animate_anchors, strength_ratio=200.0)
     sim.setup_sim()
+    single_env_steps(sim)
     for i in range(STEPS):
         frame["i"] = i
         sim.step()
@@ -76,6 +78,7 @@ def jax_pressed_tet():
 
     tet.set_attachments(np.array([0]), aim_provider=animate_apex, strength_ratio=100.0)
     sim.setup_sim()
+    single_env_steps(sim)
     for i in range(STEPS):
         frame["i"] = i
         sim.step()
@@ -88,6 +91,7 @@ def jax_falling_cubes():
         mesh_cfg=J.objects.TetMeshCfg(size=(0.04, 0.04, 0.04), resolution=(3, 3, 3), center=(0, 0, 0.08)),
         constitution=J.StableNeoHookeanCfg(youngs_modulus=0.05, poisson_rate=0.45)), sim)
     sim.setup_sim()
+    single_env_steps(sim)
     for _ in range(STEPS):
         sim.step()
     return np.asarray(cube.nodal_pos_w)

@@ -89,6 +89,13 @@ UIPC_MODULES = [
     "tacex_tpu_torch.sensors.gelsight.fem.geometry",
 ]
 SLICE_MODULES += UIPC_MODULES
+# shells (cloth) and the .msh reader
+SHELL_MODULES = [
+    "tacex_tpu_torch.physics.soft.codim",
+    "tacex_tpu_torch.physics.soft.shell",
+    "tacex_tpu_torch.physics.soft.msh_io",
+]
+SLICE_MODULES += SHELL_MODULES
 # the UIPC examples and the CCD envelope script, with the arguments of a short run
 UIPC_SCRIPTS = {
     "examples/libuipc_samples/hello_uipc_torch.py": ["--steps", "1"],
@@ -105,6 +112,17 @@ UIPC_SCRIPTS = {
     "examples/libuipc_samples/screw_and_nut_torch.py": ["--steps", "0"],
     "scripts/benchmarking/benchmark_abd_pile_torch.py": ["--envs", "1", "--steps", "1", "--solver", "cg",
                                                          "--newton_iters", "1"],
+    # the cloth scenes built (the standalone ShellModel; the union of the coupled world), not stepped
+    "examples/libuipc_samples/bunny_cloth_torch.py": ["--steps", "0"],
+    "examples/cloth_trampoline_torch.py": ["--steps", "0"],
+}
+# the coupled-world benchmarking scripts, with the arguments of a run that raises at once without a card
+COUPLED_SCRIPTS = {
+    "scripts/benchmarking/benchmark_grasp_lift_torch.py": ["--envs", "1", "--steps", "0"],
+    "scripts/benchmarking/embed_accuracy_torch.py": ["--envs", "1", "--steps", "2"],
+    "scripts/benchmarking/embed_accuracy_grasp_torch.py": ["--steps", "1"],
+    "scripts/benchmarking/profile_coupled_torch.py": ["--envs", "1", "--steps", "1"],
+    "scripts/benchmarking/sweep_grasp_lift_scale_torch.py": [],
 }
 # the slice's scripts, under scripts/
 TOOL_SCRIPTS = [
@@ -302,6 +320,50 @@ def test_uipc_scripts_run_with_jax_blocked():
         "            raise AssertionError('built without a card')\n"
         "        except RuntimeError as e:\n"
         "            assert 'no CUDA device' in str(e), e\n"
+        "print('ok')\n"
+    )
+    out = _python(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_coupled_scripts_run_with_jax_blocked():
+    """With importing jax and the JAX package made to raise: the shell
+    modules import, each coupled-world benchmarking script prints its
+    ``--help`` with ``--device`` (default ``cuda``), without a card its
+    default device raises (the sweep records the error in each of its
+    lines and goes on, as the JAX sweep does). Their CPU runs are
+    ``tests/test_torch_scripts_coupled.py``'s."""
+    code = BLOCKER + (
+        "import contextlib, importlib, io, json, runpy, torch\n"
+        f"for m in {SHELL_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "card = torch.cuda.is_available()\n"
+        f"for script, argv in {COUPLED_SCRIPTS!r}.items():\n"
+        "    main = runpy.run_path(script)['main']\n"
+        "    buf = io.StringIO()\n"
+        "    with contextlib.redirect_stdout(buf):\n"
+        "        try:\n"
+        "            main(['--help'])\n"
+        "        except SystemExit as e:\n"
+        "            assert e.code == 0, (script, e.code)\n"
+        "    assert '--device' in buf.getvalue(), script\n"
+        "    assert \"'--device', default='cuda'\" in open(script).read().replace('\"', \"'\"), script\n"
+        "    if card:\n"
+        "        continue\n"
+        "    buf = io.StringIO()\n"
+        "    with contextlib.redirect_stdout(buf):\n"
+        "        try:\n"
+        "            main(argv)\n"
+        "            ran = True\n"
+        "        except RuntimeError as e:\n"
+        "            assert 'no CUDA device' in str(e), (script, e)\n"
+        "            ran = False\n"
+        "    if 'sweep' in script:\n"
+        "        rows = [json.loads(line) for line in buf.getvalue().splitlines()]\n"
+        "        assert len(rows) == 7 and all('no CUDA device' in r['error'] for r in rows), rows\n"
+        "    else:\n"
+        "        assert not ran, script + ' ran without a card'\n"
         "print('ok')\n"
     )
     out = _python(code)

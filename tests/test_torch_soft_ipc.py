@@ -201,19 +201,30 @@ def test_sphere_contact_force_matches_jax(pressed):
 
 
 def test_unported_branches_raise():
-    """Shells are not ported: they raise, naming the roadmap item, instead
-    of being ignored. Self, static-trimesh and edge-edge contact and the
-    broad-phase counters are ported (held to the JAX package in
-    ``test_torch_uipc_families.py``): they build and count; a scene with a
-    thread collider steps (held to the JAX package in
+    """Every branch of the model is ported now. Shell elements join it: their
+    masses add to the tets' lumped masses and their energies to the elastic
+    energy (held to the JAX package in ``test_torch_shell*.py``). Self,
+    static-trimesh and edge-edge contact and the broad-phase counters build
+    and count (held to the JAX package in ``test_torch_uipc_families.py``); a
+    scene with a thread collider steps (held to the JAX package in
     ``test_torch_abd_threads.py``)."""
+    from tacex_tpu_torch.physics.soft import codim as tcodim
+    from tacex_tpu_torch.physics.soft.fem import lumped_masses
+
     mesh = tmesh.box_tet_mesh((0.01, 0.01, 0.004), (2, 2, 1))
-
-    class Shells:
-        num_tris = 1
-
-    with pytest.raises(NotImplementedError, match="shell.*Queue 1 item 8b"):
-        tipc.SoftBodyModel(mesh, device="cpu", shell_elems=Shells())
+    top = mesh.surface_tris[(mesh.points[mesh.surface_tris][..., 2] > 0.0019).all(-1)]
+    shells = tcodim.build_shell_elements(mesh.points, top, num_vertices=mesh.num_vertices)
+    plain = tipc.SoftBodyModel(mesh, device="cpu")
+    with_shells = tipc.SoftBodyModel(mesh, device="cpu", shell_elems=shells)
+    assert len(top) == 8 and with_shells.shell is not None and plain.shell is None
+    np.testing.assert_allclose(with_shells.masses.numpy(),
+                               (lumped_masses(mesh.points, mesh.tets, 1000.0) + shells.masses).astype(np.float32))
+    x = torch.from_numpy(mesh.points)[None] * torch.tensor([1.1, 1.0, 1.0])  # a stretch loads the membrane
+    args = (x, x, tipc.RigidSdfScene.empty(1, device="cpu"), torch.zeros((1, 1, 3)), x, None, 0.01)
+    shell_part = tcodim.membrane_energy(x, with_shells.shell) + tcodim.bending_energy(x, with_shells.shell)
+    assert shell_part.item() > 0
+    np.testing.assert_allclose(with_shells._energy(*args).numpy(), (plain._energy(*args) + shell_part).numpy(),
+                               rtol=1e-6)
     families = tipc.SoftBodyModel(mesh, device="cpu", cfg=tipc.IpcSolverCfg(self_contact_k=4, ee_contact_k=4),
                                   static_tris=np.zeros((1, 3, 3), np.float32))
     counts = families.broad_phase_overflow(torch.from_numpy(mesh.points)[None])

@@ -9,9 +9,8 @@ sideways (``_torch_uipc_api.ATOL``, 1.5e-5 m), the attachment selection
 exactly. The rest are the JAX tests' behaviours on the port: lifecycle and
 time report, reset by vertex write, save/replay after later writes, the
 sanity and health checks, the ccd-substeps warning and plumbing, the CCD
-motion guard, ``step_n``'s refusal of live providers, and the branches
-that are not ported (the split ABD solve, shells), which raise naming
-their ROADMAP items.
+motion guard, ``step_n``'s refusal of live providers, and the worlds that
+earlier slices left out (the split ABD solve, shells), which now step.
 """
 
 import warnings
@@ -21,7 +20,7 @@ import pytest
 import torch
 
 from _torch_bins import setup_torch
-from _torch_uipc_api import ATOL, J, T, build_gel, drive, numpy
+from _torch_uipc_api import ATOL, J, T, build_gel, drive, numpy, single_env_steps
 
 setup_torch()
 
@@ -31,6 +30,8 @@ def test_lifecycle_and_moving_attachment_match_jax():
     for M in (J, T):
         sim, obj, att = build_gel(M, num_envs=2)
         sim.setup_sim()
+        if M is J:
+            single_env_steps(sim)
         drive(M, obj, att, 2, shift=(0.002, 0.0, 0.0))
         for _ in range(3):
             sim.step()
@@ -198,8 +199,8 @@ def test_unported_worlds_raise():
     """The worlds of ROADMAP item 8a now step: a lone dynamic affine body
     (the split ABD solve), two of them (with body-body contact) and a FEM
     object beside an affine body outside the coupled world (``coupling_k =
-    0``); each body falls under gravity. Shell objects still raise, naming
-    item 8b."""
+    0``); each body falls under gravity. So does a lone shell object (item
+    8b), through its own ``ShellModel``."""
     sim = T.UipcSim(T.UipcSimCfg(num_envs=1, newton=T.UipcSimCfg.Newton(max_iter=2)), device="cpu")
     T.UipcObject(_cube(T, kinematic=False), sim)
     sim.setup_sim()
@@ -222,13 +223,14 @@ def test_unported_worlds_raise():
     assert sim._coupled is None
     sim.step()
     assert sim._abd_state.q[0, 0, 2].item() < 0.0 and gel.root_pos_w[0, 2].item() < 0.0
-    sim = T.UipcSim(T.UipcSimCfg(num_envs=1), device="cpu")
+    sim = T.UipcSim(T.UipcSimCfg(num_envs=1, newton=T.UipcSimCfg.Newton(max_iter=2)), device="cpu")
     pts = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32)
-    T.UipcObject(T.UipcObjectCfg(constitution=T.NeoHookeanShellCfg()), sim, points=pts, triangles=np.array([[0, 1, 2]]))
-    with pytest.raises(NotImplementedError, match="shell.*Queue 1 item 8b"):
-        sim.setup_sim()
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        sim.cfg.to_shell_cfg()
+    cloth = T.UipcObject(T.UipcObjectCfg(constitution=T.NeoHookeanShellCfg()), sim, points=pts,
+                         triangles=np.array([[0, 1, 2]]))
+    sim.setup_sim()
+    assert type(cloth.model).__name__ == "ShellModel" and sim.cfg.to_shell_cfg().newton_max_iter == 2
+    sim.step()
+    assert (cloth.nodal_pos_w[0, :, 2] < 0.0).all()
 
 
 def test_solver_cfg_matches_jax():

@@ -13,7 +13,7 @@ import numpy as np
 import jax.numpy as jnp
 
 from _torch_bins import setup_torch
-from _torch_uipc_api import ATOL, J
+from _torch_uipc_api import ATOL, J, single_env_steps
 
 setup_torch()
 
@@ -33,6 +33,7 @@ def _jax_single_attachment():
     att = J.UipcIsaacAttachments(J.UipcIsaacAttachmentsCfg(attachment_points_radius=5e-4), gel)
     att.compute_attachment_data(np.zeros(3), np.array([1.0, 0, 0, 0]))
     sim.setup_sim()
+    single_env_steps(sim)
     arm = franka.ArmState.init(n)
     tool_pos0, tool_quat0 = franka.forward_kinematics(arm.q)[:2]
     gel.write_vertex_positions_to_sim(

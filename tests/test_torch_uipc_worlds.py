@@ -29,7 +29,7 @@ import torch
 import jax.numpy as jnp
 
 from _torch_bins import setup_torch
-from _torch_uipc_api import ATOL, J, T, is_jax, new_sim, numpy
+from _torch_uipc_api import ATOL, J, T, is_jax, new_sim, numpy, single_env_steps
 from tacex_tpu.physics.soft import mesh as jmesh
 from tacex_tpu_torch.physics.soft import mesh as tmesh
 
@@ -73,6 +73,8 @@ def _two_gels(M, k=4):
     bottom.set_attachments(bot_anchor, aim_provider=lambda: rest_b)
     top.set_attachments(top_anchor, aim_provider=top_aim)
     sim.setup_sim()
+    if is_jax(M):
+        single_env_steps(sim)
     return sim, bottom, top, drop
 
 
