@@ -4,7 +4,8 @@ PPO training on it, the other ball-rolling tasks, every shading path, the
 Factory tasks, pole balancing, SAC, the soft FEM gel pad of the UIPC
 ball-rolling tasks, the user-facing tools and demos, the coupled FEM+ABD
 world of the Grasp-Lift and Factory-UIPC tasks, the UIPC scene API, the
-standalone ABD solve and shells (cloth).
+standalone ABD solve, shells (cloth) and env-axis data parallelism
+(torch.distributed, one rank on the one card).
 
     python3 chip_smoke.py
 
@@ -29,7 +30,11 @@ package beside this file; it imports nothing of JAX. In order it:
      plain version, its bound (bytes over 3.35 TB/s or FLOPs over
      67 TFLOP/s FP32, NVIDIA's H100 SXM data sheet, whichever is larger)
      and, for the shading, the one PyTorch call that computes it
-     (``embedding_bag``, timed here only: the port never calls it);
+     (``embedding_bag``, timed here only: the port never calls it); and
+     K2's bf16-table entry (``lut_dtype=torch.bfloat16``) at (4096, 768)
+     and (256, 76800), after a counted ``render(lut_dtype=bfloat16)`` of
+     the flagship's frame and of the sensor's (``embedding_bag`` then runs
+     on the bf16-rounded table, widened);
   5. runs ``TacEx-Ball-Rolling-Taxim-Fots-v0`` at 4096 envs with the
      actor-critic's mean action (plus -0.1 on z, so the gel presses the
      ball) in the loop; the steady steps run under
@@ -37,7 +42,11 @@ package beside this file; it imports nothing of JAX. In order it:
      checks every output is finite, that the gel is pressed, and that both
      kernels were launched on every step;
   6. steps the env at 8 envs on the card (kernels) and on the CPU (plain
-     versions) from one state and holds the two to each other;
+     versions) from one state and holds the two to each other; runs
+     ``DirectRLEnv.rollout`` for 5 steps at 4096 envs under sync-debug
+     "error" (K1 and K2 once a step) and holds its first 16 envs to the same
+     rollout on the CPU; and holds one ``ActorCritic(shared_trunk=True)``
+     forward on the card to the CPU's (atol 1e-5);
   7. trains: ``PPO`` on the flagship at 4096 envs under its tuned config
      (rollouts of 64, 4 epochs of 32 minibatches of 8,192 samples), one
      warm-up iteration and two timed ones, the second under sync-debug
@@ -46,15 +55,19 @@ package beside this file; it imports nothing of JAX. In order it:
      ran once per rollout step; prints seconds per iteration, env-steps/s,
      the rollout/update split (CUDA events) and peak memory;
   8. trains ``TacEx-Ball-Rolling-Privileged-v0`` at 4096 envs under its state
-     config for 10 iterations and prints each one's reward per step;
+     config for 5 iterations and prints each one's reward per step;
   9. resets and steps each of the other five ball-rolling ids at 256 envs
      under sync-debug "error", checks the observation shapes, and holds the
      two IK resets' joint angles to the same solve on the CPU (atol 1e-4);
  10. at 320x240 on 16 pressed envs, holds ``render(with_shadow=True)``,
      ``shade(interp="bilinear")`` and ``render(compact_capacity=16384)`` on
      the card to the same calls on the CPU, times each, checks the compact
-     call launched the shading kernel, and that the pyramid wrapper refuses
-     a CUDA input that requires grad;
+     call launched the shading kernel twice (the halo, the contact rows),
+     that the pyramid wrapper refuses a CUDA input that requires grad;
+     ``render(lut_dtype=bfloat16)`` on the card against the CPU under the
+     bin rule, the compact render with the bf16 table (K2's bf16 entry on
+     the contact rows, counted and held to its plain version), and
+     ``render(orig_hm_fmt=True)`` against the CPU under the bin rule;
  11. steps each Factory task (PegInsert, GearMesh, NutThread) at its
      default 128 envs: reset, a warm-up step, 5 steps under sync-debug
      "error" with K1 and K2 each launched exactly once a step on the 256
@@ -91,8 +104,8 @@ package beside this file; it imports nothing of JAX. In order it:
      registered 16 envs from a pressed start (each pad 0.6 mm toward the
      cube): a warm step, 2 steps under sync-debug "error" with K1 and K2
      launched once a step on the 2N = 32 pad images of 32x32; prints ms a
-     step, torch.profiler's device activities and device time of one step,
-     one coupled solve alone and peak memory; holds K1 (warp design,
+     step, torch.profiler's device activities and device time of one more
+     step, one coupled solve alone and peak memory; holds K1 (warp design,
      (32, 32, 32)) and K2 ((32, 1024), full table, beside ``embedding_bag``)
      to their plain versions; holds 2 envs on the card to the CPU after one
      step from a carried-over pressed state at the parity tests' 2 Newton x
@@ -143,7 +156,7 @@ package beside this file; it imports nothing of JAX. In order it:
      same from the 8 cubes stacked in contact (within the larger of that
      and 4x the CPU step's response to a 1e-7 jolt of its input);
      ``wrecking_balls_torch`` (six bodies in the split ABD world of
-     ``UipcSim``) and ``screw_and_nut_torch`` (thread contact) at 3 steps,
+     ``UipcSim``) and ``screw_and_nut_torch`` (thread contact) at 2 steps,
      with their broad-phase counts;
  21. (last) shells, which launch neither kernel: the standalone
      ``ShellModel`` on ``grid_cloth()``'s 20 x 20 cloth of 2 m (400
@@ -156,9 +169,27 @@ package beside this file; it imports nothing of JAX. In order it:
      CG x 4 line-search iterations (within 1e-5 m, or 4x the CPU step's own
      response to a 1e-7 m jolt where that is larger); ``cloth_trampoline_torch``
      (cloth and a free cube in the coupled world) and ``bunny_cloth_torch``
-     (a standalone cloth over a kinematic body) at 3 steps each; and a lone
+     (a standalone cloth over a kinematic body) at 2 steps each; and a lone
      20 x 20 cloth with self contact through the union at 16 envs, 2 steps,
-     with its broad-phase counts.
+     with its broad-phase counts;
+ 22. (after step 8) env-axis data parallelism: a 1-rank NCCL group in this
+     process (127.0.0.1, a free port; NCCL refuses two ranks on one card)
+     runs the flagship's PPO at 4096 envs under its tuned config through
+     the sharded path, a warm iteration then one under sync-debug "error";
+     holds the all-reduced gradient, loss and KL of each minibatch of that
+     iteration's first epoch, at the iteration's end, to the plain PPO's
+     ``autograd.grad`` of the same rows (relative 1e-6, or twice the
+     spread of two plain gradients where that is larger), and the whole
+     iteration to the plain PPO's from the same state and the same
+     permutations, in the parameters and the loss, within twice the spread
+     of two plain iterations from that state (equal where that is 0);
+     prints the iteration's seconds beside the plain one's, and the count
+     and device time (CUDA events) of its all-reduces; 3
+     flagship steps with the curriculum's all-reduce under sync-debug
+     "error"; one sharded SAC train step on the privileged task at 512
+     envs; and ``torchrun --nproc_per_node 1 scripts/train_torch.py
+     --shard`` (2 iterations at 256 envs) as a subprocess, which must exit
+     0 with one JSON line an iteration.
 
 Each phase prints its seconds. The second-to-last line is a JSON object with a row per kernel and shape:
 its launches on the main path that runs it at that shape, its error against
@@ -203,7 +234,7 @@ SAC_PRIVILEGED_ENVS = 512  # logs/sac_privileged_r05/config.json
 SAC_GUARDED_STEPS = 5
 SAC_VISION_STEPS = 2
 TRAIN_ITERATIONS = 3  # one warm-up, two timed
-PRIVILEGED_ITERATIONS = 10
+PRIVILEGED_ITERATIONS = 5
 OTHER_ENVS = 256
 SHADING_ENVS = 16
 COMPACT_CAPACITY = 16384
@@ -255,15 +286,37 @@ ABD_ENVS = 64  # scripts/benchmarking/benchmark_abd_pile.py's default
 ABD_STEPS = 4  # the first profiled
 ABD_REF_CFG = dict(newton_max_iter=2, line_search_iters=6, cg_iters=3)  # tests/_torch_abd.py's iterations
 ABD_REF_ATOL = {"dense": 1e-5, "cg": 1e-4}  # tests/test_torch_abd_step.py
-ABD_SAMPLE_STEPS = 3
+ABD_SAMPLE_STEPS = 2
 SHELL_ENVS = 64  # the abd phase's batch
 SHELL_STEPS = 4  # under sync-debug "error" after a warm step: the first profiled, the others timed
 SHELL_SOUP_GAP = 1.5e-3  # m: the cloth over the soup's top vertex, inside d_hat (2 mm)
 SHELL_REF_CFG = dict(newton_max_iter=2, cg_iters=6, line_search_iters=4, velocity_tol=0.0)  # tests/_torch_shell.py
 SHELL_REF_ATOL = 1e-5  # m, or 4x the CPU step's response to a 1e-7 m jolt where that is larger
-SHELL_SCENE_STEPS = 3
+SHELL_SCENE_STEPS = 2
 SHELL_UNION_ENVS = 16
 SHELL_UNION_STEPS = 2
+PARALLEL_SAC_ENVS = 512  # the sac phase's privileged width
+PARALLEL_CURRICULUM_STEPS = 3
+PARALLEL_TORCHRUN_ENVS = 256
+PARALLEL_TORCHRUN_ITERATIONS = 2
+# One minibatch of the 1-rank NCCL PPO (its rows picked from the global
+# permutation, each term summed and divided by the minibatch size, the
+# flat all-reduce) against the plain PPO's autograd.grad of the same rows
+# at the same network: ||g - g_plain|| / ||g_plain||, and the relative
+# difference of the loss and the KL. The two run the same arithmetic, so
+# they may differ only by kernels that are not deterministic: the bound is
+# the larger of PARALLEL_GRAD_RTOL and PARALLEL_SPREAD_FACTOR times the
+# spread of two plain gradients of the same rows (0 on one H100, 1.03e-6
+# on another: cuDNN's choice of convolution algorithms).
+PARALLEL_GRAD_RTOL = 1e-6
+# The whole 1-rank iteration against the plain PPO's from the same state
+# and permutations, in the parameters and the loss: within this factor of
+# the spread of two plain iterations from that state (the card's
+# run-to-run noise; 0 where its kernels are deterministic, and then the
+# two must be equal).
+PARALLEL_SPREAD_FACTOR = 2.0
+ROLLOUT_STEPS = 5
+ROLLOUT_CPU_ENVS = 16  # the rollout's first envs, held to the CPU
 WARMUP_STEPS = 2
 STEPS = 10
 KERNEL_ATOL = 1e-5
@@ -302,8 +355,14 @@ def _frame(env, state):
     """The flagship's tactile frame of ``state`` up to the kernels' inputs:
     the pyramid's (joined, mask, sigmas) and, after the deformation, the LUT
     indices (full table and direction only)."""
+    return _height_frame(env.sensor.calib, _flagship_shifted(env, state))
+
+
+def _flagship_shifted(env, state):
+    """The flagship's (n, 24, 32) shifted height maps (mm) of ``state``."""
     from tacex_tpu_torch.envs.ball_rolling.env import CAM_EXTENT
     from tacex_tpu_torch.render.depth_camera import SdfScene, render_depth_batch
+    from tacex_tpu_torch.sensors.gelsight.taxim import optical
 
     c = env.cfg
     n = c.num_envs
@@ -312,7 +371,8 @@ def _frame(env, state):
     radius = torch.full((n, 1), c.ball_radius, device=env.device)
     scene = SdfScene(torch.cat([state.ball_pos, radius], -1)[:, None], env._boxes, env._capsules, env._planes)
     depth = render_depth_batch(cam_pos, cam_quat, scene, tuple(c.camera_resolution), CAM_EXTENT, far=c.sensor_clipping[1])
-    return _depth_frame(env.sensor, depth)
+    hm = env.sensor.height_map_from_depth(depth)
+    return optical.shift_height_map(hm, env.sensor.compute_indentation_depth(hm))
 
 
 def _depth_frame(sensor, depth):
@@ -374,10 +434,11 @@ def pyramid_bound(shape, sigmas) -> tuple[float, str]:
     return _bound(n * h * w * (4 + 1 + 4), 2.0 * n * h * w * taps)
 
 
-def lut_bound(n, p, rows) -> tuple[float, str]:
+def lut_bound(n, p, rows, row_bytes: int = 72) -> tuple[float, str]:
     """K2 reads the indices (i32), the features (6 x P f32) and the table
-    (R x 18 f32) once and writes (n, P, 3) f32; 18 FMAs a pixel."""
-    return _bound(4 * n * p + 24 * p + 72 * rows + 12 * n * p, 36.0 * n * p)
+    (R x 18 f32, or bf16: 36-byte rows) once and writes (n, P, 3) f32; 18
+    FMAs a pixel."""
+    return _bound(4 * n * p + 24 * p + row_bytes * rows + 12 * n * p, 36.0 * n * p)
 
 
 def _timing(fn, plain, nbytes_flops, library=None) -> dict:
@@ -431,13 +492,13 @@ def _lut_entry(label, idx, feats, table) -> dict:
     err = _compare(f"lut_shade[{label}]", K2.lut_shade(idx, feats, table), K2.lut_shade_plain(idx, feats, table))
     bags = (idx.long()[..., None] * 6 + torch.arange(6, device=idx.device)).reshape(n * p, 6)
     weights = feats.T.expand(n, p, 6).reshape(n * p, 6).contiguous()
-    entries = table.reshape(-1, 3)
+    entries = table.to(torch.float32).reshape(-1, 3)  # a bf16 table rounded, then widened
     library = lambda: torch.nn.functional.embedding_bag(bags, entries, per_sample_weights=weights, mode="sum")
     _compare(f"embedding_bag[{label}] (library yardstick)", library().reshape(n, p, 3),
              K2.lut_shade_plain(idx, feats, table))
     return dict(shape=[n, p, table.shape[0]], max_abs_err=err,
                 **_timing(lambda: K2.lut_shade(idx, feats, table), lambda: K2.lut_shade_plain(idx, feats, table),
-                          lut_bound(n, p, table.shape[0]), library))
+                          lut_bound(n, p, table.shape[0], 18 * table.element_size()), library))
 
 
 def _print_entries(entries: dict) -> None:
@@ -479,8 +540,22 @@ def kernel_phase(env, state, device, sensor_frame, sensor_lut) -> dict:
 
     _compare("dir_row_shade", K2.dir_row_shade(idir, feats, tabs), K2.lut_shade_plain(idir, feats, tabs.T))
     entries["lut full table 256x76800"] = _lut_entry("256x76800", *sensor_lut)
+
+    # K2's bf16 entry: the flagship's frame rendered with lut_dtype=bfloat16
+    # (counted), then the entry held to its plain version on the rounded table
+    from tacex_tpu_torch.sensors.gelsight.taxim import optical
+
+    shifted = _flagship_shifted(env, state)
+    _reset_counters()
+    rgb = optical.render(calib, shifted, lut_dtype=torch.bfloat16)
+    bf16 = {"render_bf16_24x32_4096": _bf16_launches()}
+    if bf16["render_bf16_24x32_4096"]["lut_shade_bf16"] != 1 or not bool(torch.isfinite(rgb).all()):
+        raise AssertionError(f"render(lut_dtype=bfloat16) at 4096 envs: launches {bf16}")
+    entries["lut bf16 full table 4096x768"] = _lut_entry("4096x768 bf16", idx, feats, table.to(torch.bfloat16))
+    idx_s, feats_s, table_s = sensor_lut
+    entries["lut bf16 full table 256x76800"] = _lut_entry("256x76800 bf16", idx_s, feats_s, table_s.to(torch.bfloat16))
     _print_entries(entries)
-    return entries
+    return entries, bf16
 
 
 def _counters():
@@ -493,6 +568,12 @@ def _counters():
 def _reset_counters() -> None:
     for fn in _counters():
         fn.launches = 0
+    _counters()[1].bf16_launches = 0
+
+
+def _bf16_launches() -> dict:
+    """K2's bf16-table entry's launches since the last reset."""
+    return {"lut_shade_bf16": _counters()[1].bf16_launches}
 
 
 def _read_counters() -> dict:
@@ -586,7 +667,21 @@ def sensor_phase(device) -> dict:
     idx_mag, idx_dir = bins_g
     lut = ((idx_mag * nb + idx_dir).reshape(SENSOR_ENVS, -1).contiguous(), sensor.calib.features,
            sensor.calib.poly_lut.reshape(nb * nb, 18))
-    return dict(launches=launches, update_ms=update_ms, frame=frame, lut=lut, worst_edge_bins=worst_edge)
+
+    # the sensor's frame rendered with the bf16 table (K2's bf16 entry, counted)
+    from tacex_tpu_torch.sensors.gelsight.taxim import optical
+
+    shifted = optical.shift_height_map(out["height_map"], out["indentation_depth"])
+    _reset_counters()
+    rgb_bf16 = optical.render(sensor.calib, shifted, lut_dtype=torch.bfloat16)
+    bf16 = _bf16_launches()
+    d_bf16 = float((rgb_bf16 - optical.render(sensor.calib, shifted)).abs().max())
+    print(f"sensor: render(lut_dtype=bfloat16) at 320x240 on {SENSOR_ENVS} envs: launches {bf16}, "
+          f"{d_bf16:.4f} from the f32 table's image")
+    if bf16["lut_shade_bf16"] != 1 or not 0.0 < d_bf16 < 0.05:
+        raise AssertionError(f"render(lut_dtype=bfloat16): launches {bf16}, {d_bf16} from the f32 image")
+    return dict(launches=launches, update_ms=update_ms, frame=frame, lut=lut, worst_edge_bins=worst_edge,
+                bf16_launches=bf16)
 
 
 def calib_frame_phase(device) -> dict:
@@ -728,6 +823,71 @@ def reference_phase(device) -> None:
         # pixels that agree, not by its largest difference
         if not (d_prop <= 1e-4 and d_ind <= 1e-3 and d_rew <= 1e-4 and near >= 0.9):
             raise AssertionError("the card's env step disagrees with the CPU's")
+    rollout_reference(device, kw, actions[0])
+    shared_trunk_reference(device)
+
+
+def rollout_reference(device, kw, action) -> None:
+    """``DirectRLEnv.rollout``: ROLLOUT_STEPS steps of the flagship at
+    NUM_ENVS envs under sync-debug "error" (K1 and K2 once a step), its
+    first ROLLOUT_CPU_ENVS envs held to the same rollout on the CPU (the
+    envs are independent, and this config draws nothing that counts)."""
+    from tacex_tpu_torch import envs
+    from tacex_tpu_torch.parallel import mesh
+
+    kw = {**kw, "num_envs": NUM_ENVS}
+    gpu = envs.make(ENV_ID, device=device, **kw)
+    st, _ = gpu.reset_all(gpu.init_state())
+    st = dataclasses.replace(st, goal_pos=st.ball_pos[:, :2] + 0.05)
+    actions = action.to(device).repeat(NUM_ENVS // action.shape[0], 1).expand(ROLLOUT_STEPS, NUM_ENVS, -1).contiguous()
+    gpu.rollout(st, actions)  # warm
+    torch.cuda.synchronize()
+    _reset_counters()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        end, (obs, rew, term, trunc) = gpu.rollout(st, actions)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launches = _read_counters()
+    if any(count != ROLLOUT_STEPS for count in launches.values()):
+        raise AssertionError(f"rollout: launches {launches}, expected {ROLLOUT_STEPS} each")
+    if tuple(rew.shape) != (ROLLOUT_STEPS, NUM_ENVS) or tuple(obs["vision_obs"].shape[:2]) != (ROLLOUT_STEPS, NUM_ENVS):
+        raise AssertionError(f"rollout: reward {tuple(rew.shape)}, vision {tuple(obs['vision_obs'].shape)}")
+    _check_finite("rollout", {"state": end, "obs": obs, "reward": rew})
+    m = ROLLOUT_CPU_ENVS
+    cpu = envs.make(ENV_ID, device="cpu", **{**kw, "num_envs": m})
+    sub = mesh.slice_envs(_state_to(st, "cpu"), 0, m, NUM_ENVS)
+    end_c, (obs_c, rew_c, term_c, trunc_c) = cpu.rollout(sub, actions[:, :m].cpu())
+    if bool((term_c | trunc_c).any()) or not torch.equal(term[:, :m].cpu(), term_c):
+        raise AssertionError("an env finished in the rollout's CPU slice")
+    d_prop = float((obs["proprio_obs"][:, :m].cpu() - obs_c["proprio_obs"]).abs().max())
+    d_rew = float((rew[:, :m].cpu() - rew_c).abs().max())
+    near = float(((obs["vision_obs"][:, :m].cpu() - obs_c["vision_obs"]).abs().amax(-1) <= 1e-4).float().mean())
+    print(f"rollout: {ROLLOUT_STEPS} steps at {NUM_ENVS} envs with no host sync, launches {launches}; envs 0-{m - 1} "
+          f"cuda vs cpu: proprio {d_prop:.2e} reward {d_rew:.2e}, {near:.3f} of pixels within 1e-4")
+    if not (d_prop <= 1e-4 and d_rew <= 1e-4 and near >= 0.9):  # the reference steps' bounds
+        raise AssertionError("the card's rollout disagrees with the CPU's")
+
+
+def shared_trunk_reference(device) -> None:
+    """``ActorCritic(shared_trunk=True)`` on the flagship's observation
+    shapes: one forward on the card held to the same weights on the CPU."""
+    from tacex_tpu_torch.rl.networks import ActorCritic
+
+    net = ActorCritic(14, (24, 32, 3), 6, shared_trunk=True, device=device).init_(
+        torch.Generator(device=device).manual_seed(3))
+    cpu = ActorCritic(14, (24, 32, 3), 6, shared_trunk=True, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+    g = torch.Generator().manual_seed(4)
+    obs = {"proprio_obs": torch.randn((256, 14), generator=g), "vision_obs": torch.rand((256, 24, 32, 3), generator=g)}
+    with torch.no_grad():
+        out_g = net({k: v.to(device) for k, v in obs.items()})
+        out_c = cpu(obs)
+    d = max(float((a.cpu() - b).abs().max()) for a, b in zip(out_g, out_c))
+    print(f"shared trunk: ActorCritic(shared_trunk=True) forward on 256 flagship observations, cuda vs cpu {d:.2e} "
+          "(atol 1e-5)")
+    if not d <= 1e-5:
+        raise AssertionError(f"the shared-trunk forward disagrees with the CPU's by {d}")
 
 
 def _event_timed(fn, spans: list):
@@ -833,6 +993,250 @@ def privileged_train_phase(device) -> dict:
           f"{cfg.mini_batches} minibatches: {sec:.3f} s/iteration = {cfg.rollouts * NUM_ENVS / sec:.1f} env-steps/s; "
           f"reward/step by iteration {[round(r, 4) for r in rewards]}")
     return dict(sec_per_iter=sec, rewards=rewards)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _ppo_snapshot(ppo) -> dict:
+    """What a PPO iteration starts from, copied: the network, Adam's moments
+    and count, the learning rate, the value scaler, the env state and
+    observation, and the trainer's and the env's generators."""
+    clone = lambda t: t.detach().clone()  # noqa: E731
+    return dict(net={k: clone(v) for k, v in ppo.net.state_dict().items()}, adam_m=[clone(m) for m in ppo.adam_m],
+                adam_v=[clone(v) for v in ppo.adam_v], adam_count=ppo.adam_count, lr=clone(ppo.lr),
+                value_scaler=ppo.value_scaler, env_state=_state_clone(ppo.env_state),
+                obs={k: clone(v) for k, v in ppo.obs.items()}, generator=ppo.generator.get_state(),
+                env_generator=ppo.env.generator.get_state(), steps=ppo.steps)
+
+
+def _ppo_restore(ppo, snap: dict) -> None:
+    """Put an initialised PPO at ``snap``."""
+    ppo.net.load_state_dict(snap["net"])
+    for mine, theirs in ((ppo.adam_m, snap["adam_m"]), (ppo.adam_v, snap["adam_v"])):
+        for a, b in zip(mine, theirs):
+            a.copy_(b)
+    ppo.adam_count, ppo.lr, ppo.value_scaler = snap["adam_count"], snap["lr"].clone(), snap["value_scaler"]
+    ppo.env_state, ppo.obs = _state_clone(snap["env_state"]), {k: v.clone() for k, v in snap["obs"].items()}
+    ppo.generator.set_state(snap["generator"])
+    ppo.env.generator.set_state(snap["env_generator"])
+    ppo.steps = snap["steps"]
+
+
+def _state_clone(state):
+    if dataclasses.is_dataclass(state):
+        return type(state)(**{f.name: _state_clone(getattr(state, f.name)) for f in dataclasses.fields(state)})
+    return state.clone()
+
+
+def _relative(a, b) -> float:
+    """||a - b|| / ||b|| over lists of tensors."""
+    num = sum(float(((x.detach() - y.detach()).double() ** 2).sum()) for x, y in zip(a, b))
+    den = sum(float((y.detach().double() ** 2).sum()) for y in b)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def _minibatch_check(sharded, plain, flat, perm, group) -> dict:
+    """Each minibatch of one epoch of ``perm`` at the sharded PPO's network:
+    its ``minibatch_grads`` (the rank's rows, each term over the minibatch
+    size, the flat all-reduce) against the plain PPO's ``autograd.grad`` of
+    ``loss`` on the same rows, at the same network; the plain gradient taken
+    twice gives the card's own run-to-run spread. At world size 1 the
+    rank's ``flat`` is the whole trajectory, which the plain rows index."""
+    from tacex_tpu_torch.parallel import mesh
+
+    assert group.world_size == 1
+    plain.net.load_state_dict(sharded.net.state_dict())
+    total = flat[1].shape[0]
+    n_mb = min(sharded.cfg.mini_batches, total)
+    mb = total // n_mb
+    rows = mesh.local_minibatch_rows(perm[None], n_mb, mb, group, sharded.device)[0]
+    obs, *rest = flat
+    worst = dict(grad=0.0, loss=0.0, kl=0.0, spread=0.0)
+    for i, local in enumerate(rows):
+        grads, loss, kl = sharded.minibatch_grads(flat, local, mb)
+        idx = perm[i * mb : (i + 1) * mb].to(sharded.device)
+        batch = ({k: v[idx] for k, v in obs.items()}, *(x[idx] for x in rest))
+        refs = []
+        for _ in range(2):
+            ref_loss, (_, _, _, ref_kl) = plain.loss(batch)
+            refs.append((torch.autograd.grad(ref_loss, plain.params), ref_loss.detach(), ref_kl.detach()))
+        (g_ref, l_ref, k_ref), (g_again, _, _) = refs
+        for key, d in (("grad", _relative(grads, g_ref)), ("loss", _relative([loss], [l_ref])),
+                       ("kl", _relative([kl], [k_ref])), ("spread", _relative(g_again, g_ref))):
+            worst[key] = max(worst[key], d)
+    worst["minibatches"], worst["rows"] = n_mb, mb
+    return worst
+
+
+def parallel_phase(device) -> dict:
+    """Env-axis data parallelism on the one card (NCCL refuses two ranks on
+    one GPU): a 1-rank NCCL group in this process runs the flagship's PPO at
+    NUM_ENVS envs under its tuned config through the sharded path (host
+    permutations, the flattened-gradient all-reduce, the global curriculum,
+    advantage and metric reductions), a warm iteration then one under
+    sync-debug "error"; each minibatch of that iteration's first epoch held
+    to the plain PPO's gradient of the same rows, and the whole iteration to
+    the plain PPO's from the same state and the same permutations, within
+    the spread of two plain iterations; the curriculum env stepped with its all-reduce under
+    sync-debug "error"; one sharded SAC train step on the privileged task;
+    then ``torchrun --nproc_per_node 1 scripts/train_torch.py --shard``."""
+    import subprocess
+
+    import torch.distributed as dist
+    from tacex_tpu_torch import envs
+    from tacex_tpu_torch.parallel import close_env_parallel, init_env_parallel
+    from tacex_tpu_torch.rl import PPO, SAC
+    from tacex_tpu_torch.rl.agents import agent_cfg_for
+
+    nccl = dist.is_nccl_available()
+    print(f"parallel: torch.distributed {'has' if nccl else 'lacks'} NCCL")
+    if not nccl:
+        raise AssertionError("torch.distributed has no NCCL backend")
+    group = init_env_parallel(NUM_ENVS, device, init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0, world_size=1)
+    spans, all_reduce = [], dist.all_reduce
+
+    def timed_all_reduce(tensor, *args, **kwargs):  # CUDA events around each all-reduce the port issues
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = all_reduce(tensor, *args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    dist.all_reduce = timed_all_reduce
+    try:
+        cfg = agent_cfg_for(ENV_ID, "ppo")
+        sharded = PPO(envs.make(ENV_ID, num_envs=group.local_envs, device=group.device), cfg, group=group)
+        sharded.init(0)
+        perms, draw, kept, update = [], sharded.permutations, {}, sharded.update
+        sharded.permutations = lambda total: perms.append(draw(total)) or perms[-1]
+        sharded.update = lambda flat, p: kept.update(flat=flat) or update(flat, p)  # the last trajectory
+        t0 = time.perf_counter()
+        sharded.train_step()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        start = _ppo_snapshot(sharded)
+        spans.clear()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            metrics = sharded.train_step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t0
+        reduces, reduce_ms = len(spans), sum(a.elapsed_time(b) for a, b in spans)
+
+        def plain_run():
+            """The plain PPO's iteration from the sharded one's starting state."""
+            plain = PPO(envs.make(ENV_ID, num_envs=NUM_ENVS, device=device), cfg)
+            plain.init(0)
+            _ppo_restore(plain, start)
+            plain.permutations = lambda total: perms[-1].to(device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(plain.train_step()["loss"])
+            return plain, loss, time.perf_counter() - t0
+
+        def gap(a, la, b, lb):
+            d = max(float((x.detach() - y.detach()).abs().max()) for x, y in zip(a.params, b.params))
+            return d, abs(la - lb) / max(abs(lb), 1e-12)
+
+        plain, plain_loss, plain_s = plain_run()
+        loss = float(metrics["loss"])
+        d_param, d_loss = gap(sharded, loss, plain, plain_loss)
+        again, again_loss, _ = plain_run()
+        s_param, s_loss = gap(again, again_loss, plain, plain_loss)
+        del again
+        mbc = _minibatch_check(sharded, plain, kept.pop("flat"), perms[-1][0], group)
+        grad_bound = max(PARALLEL_GRAD_RTOL, PARALLEL_SPREAD_FACTOR * mbc["spread"])
+        print(f"parallel: PPO on {ENV_ID} at {NUM_ENVS} envs, 1-rank NCCL group: iteration {sharded_s:.3f} s "
+              f"(warm-up {warm_s:.3f} s; under sync-debug \"error\"), plain PPO {plain_s:.3f} s; {reduces} all-reduces "
+              f"an iteration, {reduce_ms:.3f} ms of device time (CUDA events)")
+        print(f"parallel: the {mbc['minibatches']} minibatches of {mbc['rows']} rows of the iteration's first epoch at "
+              f"its final network, the all-reduced gradient vs the plain PPO's autograd.grad of the same rows: "
+              f"gradient {mbc['grad']:.3e}, loss {mbc['loss']:.3e}, KL {mbc['kl']:.3e} (relative, the largest over the "
+              f"minibatches); two plain gradients part by {mbc['spread']:.3e} (bound {grad_bound:.3e}: the larger of "
+              f"{PARALLEL_GRAD_RTOL:g} and {PARALLEL_SPREAD_FACTOR:g}x that)")
+        print(f"parallel: the whole iteration vs the plain PPO's from the same state and permutations: parameters "
+              f"{d_param:.3e}, loss {loss:.6f} vs {plain_loss:.6f} (rel {d_loss:.2e}); two plain iterations from that "
+              f"state part by {s_param:.3e}, loss rel {s_loss:.2e} (bound {PARALLEL_SPREAD_FACTOR:g}x that)")
+        if not (np.isfinite(loss) and all(mbc[k] <= grad_bound for k in ("grad", "loss", "kl"))):
+            raise AssertionError("a minibatch of the 1-rank sharded PPO disagrees with the plain PPO's")
+        if not (d_param <= PARALLEL_SPREAD_FACTOR * s_param and d_loss <= PARALLEL_SPREAD_FACTOR * s_loss):
+            raise AssertionError("the 1-rank sharded PPO iteration parts from the plain PPO's beyond the card's "
+                                 "run-to-run spread")
+        if sharded.steps != 2 * cfg.rollouts * NUM_ENVS or plain.steps != sharded.steps:
+            raise AssertionError(f"parallel: {sharded.steps} and {plain.steps} env steps")
+
+        # the curriculum env steps with its all-reduce and no host sync
+        env, state, obs = sharded.env, sharded.env_state, sharded.obs
+        spans.clear()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(PARALLEL_CURRICULUM_STEPS):
+                state, obs, reward, *_ = env.step(state, sharded.act(obs))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        _check_finite("parallel curriculum", {"state": state, "reward": reward})
+        if len(spans) != PARALLEL_CURRICULUM_STEPS:
+            raise AssertionError(f"{len(spans)} all-reduces in {PARALLEL_CURRICULUM_STEPS} curriculum steps")
+        print(f"parallel: {PARALLEL_CURRICULUM_STEPS} flagship steps under sync-debug \"error\", one all-reduce of "
+              f"the curriculum's mean each ({sum(a.elapsed_time(b) for a, b in spans):.3f} ms of device time)")
+        del sharded, plain, env, state, obs
+
+        # one SAC train step (past the warm-up) on the privileged task
+        sac_group = group.for_envs(PARALLEL_SAC_ENVS)
+        sac_cfg = agent_cfg_for(PRIVILEGED_ID, "sac", warmup_steps=0)
+        sac = SAC(envs.make(PRIVILEGED_ID, num_envs=sac_group.local_envs, device=device), sac_cfg, group=sac_group)
+        sac.init(0)
+        sac.train_step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            sac_metrics = sac.train_step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        sac_s = time.perf_counter() - t0
+        sac_metrics = {k: float(v) for k, v in sac_metrics.items()}
+        added = 2 * sac_cfg.rollout_steps * PARALLEL_SAC_ENVS
+        if not all(np.isfinite(v) for v in sac_metrics.values()) or sac.buffer.size != min(added, sac_cfg.buffer_size):
+            raise AssertionError(f"parallel SAC: metrics {sac_metrics}, buffer size {sac.buffer.size}")
+        print(f"parallel: SAC on {PRIVILEGED_ID} at {PARALLEL_SAC_ENVS} envs, 1-rank group: a train step {sac_s:.3f} s "
+              f"under sync-debug \"error\", buffer {sac.buffer.size} rows, critic loss {sac_metrics['critic_loss']:.4f}")
+        del sac
+    finally:
+        dist.all_reduce = all_reduce
+        close_env_parallel()
+
+    # the launcher a user runs, in its own process (the kernels' library is built)
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+           str(REPO / "scripts" / "train_torch.py"), "--shard", "--iterations", str(PARALLEL_TORCHRUN_ITERATIONS),
+           "--num_envs", str(PARALLEL_TORCHRUN_ENVS)]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    torchrun_s = time.perf_counter() - t0
+    lines = [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
+    steps = PARALLEL_TORCHRUN_ITERATIONS * cfg.rollouts * PARALLEL_TORCHRUN_ENVS
+    if out.returncode != 0 or [line["iter"] for line in lines] != list(range(PARALLEL_TORCHRUN_ITERATIONS)) \
+            or lines[-1]["env_steps"] != steps:
+        raise AssertionError(f"torchrun train_torch.py --shard: rc {out.returncode}\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    print(f"parallel: {' '.join(cmd[1:])}: exit 0 in {torchrun_s:.1f} s, {len(lines)} JSON lines "
+          f"(steps_per_sec {[line['steps_per_sec'] for line in lines]}), {lines[-1]['env_steps']} env steps")
+    return dict(iteration_s=sharded_s, warmup_s=warm_s, plain_iteration_s=plain_s, all_reduces=reduces,
+                all_reduce_ms=reduce_ms, minibatch=mbc, param_diff=d_param, loss_rel_diff=d_loss,
+                plain_spread_param=s_param, plain_spread_loss_rel=s_loss, sac_step_s=sac_s,
+                torchrun_s=torchrun_s, torchrun_steps_per_sec=[line["steps_per_sec"] for line in lines])
 
 
 def env_phase(device) -> None:
@@ -958,8 +1362,8 @@ def shading_phase(device) -> dict:
     _reset_counters()
     comp_g = optical.render(cal_g, shifted, compact_capacity=COMPACT_CAPACITY)
     compact_launches = _read_counters()
-    if compact_launches["lut_shade"] != 1:
-        raise AssertionError("the compact shade path did not launch the shading kernel once")
+    if compact_launches["lut_shade"] != 2:
+        raise AssertionError("the compact shade path did not launch the shading kernel twice (halo, contact rows)")
     comp_c = optical.render(cal_c, shifted_c, compact_capacity=COMPACT_CAPACITY)
 
     def covered(idx_mag):
@@ -984,6 +1388,37 @@ def shading_phase(device) -> dict:
           f"contact pixels an env, over the capacity); at capacity h*w it equals the dense shade to {d_full:.2e}; "
           f"{comp_ms:.3f} ms per render")
 
+    # the bf16 table: the dense render cuda vs cpu under the bin rule, and
+    # the compact render counted (the halo on the f32 subtable, the contact
+    # rows through K2's bf16 entry), that entry held to its plain version
+    bf_g = optical.render(cal_g, shifted, lut_dtype=torch.bfloat16)
+    bf_c = optical.render(cal_c, shifted_c, lut_dtype=torch.bfloat16)
+    held_bf = assert_bin_rule(bf_g.cpu().numpy(), bf_c.numpy(), gm_c, gd_c, nb, spread, **rule)
+    _reset_counters()
+    optical.render(cal_g, shifted, compact_capacity=COMPACT_CAPACITY, lut_dtype=torch.bfloat16)
+    compact_bf16 = {**_read_counters(), **_bf16_launches()}
+    if compact_bf16["lut_shade"] != 1 or compact_bf16["lut_shade_bf16"] != 1:
+        raise AssertionError(f"render(compact_capacity, lut_dtype=bfloat16) launches {compact_bf16}")
+    _, rows, feats = optical.compact_rows(cal_g, *(b for b in fg["bins"]), COMPACT_CAPACITY)
+    table = cal_g.poly_lut.reshape(nb * nb, 18).to(torch.bfloat16)
+    compact_entry = {"lut bf16 compact contact rows": _lut_entry(f"{tuple(rows.shape)} bf16 compact", rows, feats, table)}
+    print(f"shading: render(lut_dtype=bfloat16) cuda vs cpu: {held_bf:.4f} of pixels held to 1e-4 under the bin "
+          f"rule; compact render with the bf16 table launches {compact_bf16}")
+
+    # the original Taxim height-map format: gel_map_shift - hm, on both devices
+    orig = cal_g.gel_map_shift - shifted
+    back = cal_g.gel_map_shift - orig
+    orig_g = optical.render(cal_g, orig, orig_hm_fmt=True)
+    orig_c = optical.render(cal_c, orig.cpu(), orig_hm_fmt=True)
+    if not torch.equal(orig_g, optical.render(cal_g, back)):
+        raise AssertionError("render(orig_hm_fmt=True) is not the render of the processed map it stands for")
+    fb_g, fb_c = _shading_frame(cal_g, back), _shading_frame(cal_c, back.cpu())
+    held_o = assert_bin_rule(orig_g.cpu().numpy(), orig_c.numpy(), fb_c["grad_mag"].numpy(), fb_c["grad_dir"].numpy(),
+                             nb, spread, bins_t=[b.cpu().numpy() for b in fb_g["bins"]],
+                             bins_j=[b.numpy() for b in fb_c["bins"]], edge_bins=EDGE_BINS)
+    print(f"shading: render(orig_hm_fmt=True) at 320x240 on {n} envs cuda vs cpu: {held_o:.4f} of pixels held to "
+          "1e-4 under the bin rule; equal to the render of gel_map_shift - (gel_map_shift - hm)")
+
     joined = torch.zeros((1, 24, 32), device=device, requires_grad=True)
     try:
         K1.deformation_pyramid(joined, torch.zeros((1, 24, 32), dtype=torch.bool, device=device), sensor_sigmas((24, 32)))
@@ -993,7 +1428,7 @@ def shading_phase(device) -> dict:
     else:
         raise AssertionError("deformation_pyramid took a CUDA input that requires grad")
     return dict(shadow_ms=shadow_ms, dense_ms=dense_ms, bilinear_ms=bil_ms, compact_ms=comp_ms,
-                compact_launches=compact_launches)
+                compact_launches=compact_launches, compact_bf16=compact_bf16, kernels=compact_entry)
 
 
 def _factory_action(n: int, device) -> torch.Tensor:
@@ -2443,7 +2878,7 @@ def main() -> None:
         return result
 
     sensor = phase("sensor", sensor_phase, device)
-    kernels = phase("kernel", kernel_phase, env, state, device, sensor.pop("frame"), sensor.pop("lut"))
+    kernels, bf16 = phase("kernel", kernel_phase, env, state, device, sensor.pop("frame"), sensor.pop("lut"))
     calib = phase("calib", calib_frame_phase, device)
     kernels.update(calib.pop("kernels"))
     run = phase("slice", slice_phase, env, state, obs, policy)
@@ -2451,6 +2886,7 @@ def main() -> None:
     del env, state, obs, policy
     train = phase("train", train_phase, device)
     privileged = phase("privileged_train", privileged_train_phase, device)
+    parallel = phase("parallel", parallel_phase, device)
     phase("env", env_phase, device)
     shading = phase("shading", shading_phase, device)
     factory = phase("factory", factory_phase, device)
@@ -2464,6 +2900,7 @@ def main() -> None:
     abd = phase("abd", abd_phase, device)
     shell = phase("shell", shell_phase, device)
 
+    kernels.update(shading.pop("kernels"))
     kernels.update(factory.pop("kernels"))
     kernels.update(uipc.pop("kernels"))
     kernels.update(coupled.pop("kernels"))
@@ -2471,6 +2908,7 @@ def main() -> None:
     sources = {
         "deformation_pyramid": ("tacex_tpu_torch/csrc/pyramid.cu", "tacex_tpu/ops/pallas_pyramid.py:61"),
         "lut_shade": ("tacex_tpu_torch/csrc/lut_shade.cu", "tacex_tpu/ops/pallas_lut.py:63"),
+        "lut_shade_bf16": ("tacex_tpu_torch/csrc/lut_shade.cu", "tacex_tpu/ops/pallas_lut.py:63"),
     }
     # (kernel, entry, the main path that runs it at that shape, its launches there)
     rows = (
@@ -2496,6 +2934,9 @@ def main() -> None:
         ("lut_shade", "lut full table 2x76800", "pick_up_rigid_2", tools["pick_up_rigid"]["launches"]),
         ("deformation_pyramid", "pyramid cluster 2x240x320", "pick_up_uipc_2", tools["pick_up_uipc"]["launches"]),
         ("lut_shade", "lut full table 2x76800", "pick_up_uipc_2", tools["pick_up_uipc"]["launches"]),
+        ("lut_shade_bf16", "lut bf16 full table 4096x768", "render_bf16_24x32_4096", bf16["render_bf16_24x32_4096"]),
+        ("lut_shade_bf16", "lut bf16 full table 256x76800", "render_bf16_320x240_256", sensor["bf16_launches"]),
+        ("lut_shade_bf16", "lut bf16 compact contact rows", "compact_render_bf16_320x240_16", shading["compact_bf16"]),
     )
     report = {
         "kernels": [
@@ -2514,7 +2955,8 @@ def main() -> None:
         "sensor_worst_edge_bins": sensor["worst_edge_bins"],
         "train": {k: v for k, v in train.items() if k != "launches"},
         "privileged_train": privileged,
-        "shading_320x240_16_ms": {k: v for k, v in shading.items() if k != "compact_launches"},
+        "shading_320x240_16_ms": {k: v for k, v in shading.items() if k not in ("compact_launches", "compact_bf16")},
+        "parallel": parallel,
         "factory": factory,
         "factory_train": factory_train,
         "pole": pole,

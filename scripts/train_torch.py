@@ -12,11 +12,19 @@ names its panels) and the strip of env 0's vision observations
 ``tactile_obs_strip.png``, every ``--viz_interval`` iterations and at the end.
 ``--rollouts`` sets PPO's rollout length or SAC's env steps per iteration.
 
+``--shard`` trains one slice of the envs per process (env-axis data
+parallelism, ``tacex_tpu_torch/parallel``): launch it with ``torchrun
+--nproc_per_node K``, one rank a card (NCCL; gloo with ``--device cpu``).
+``--num_envs`` counts every rank's envs and must be a multiple of K. Rank 0
+alone prints, writes the run folder, saves checkpoints and draws the
+dashboard; ``env_steps`` and ``steps_per_sec`` count every rank's envs.
+
 Usage:
   python scripts/train_torch.py --task TacEx-Ball-Rolling-Taxim-Fots-v0 \\
       --num_envs 4096 --iterations 200 --checkpoint_dir runs/br
   python scripts/train_torch.py --task TacEx-Ball-Rolling-Privileged-v0 \\
       --algorithm sac --num_envs 512 --iterations 4000
+  torchrun --nproc_per_node 8 scripts/train_torch.py --shard --num_envs 32768 --iterations 200
 """
 
 from __future__ import annotations
@@ -55,6 +63,8 @@ def main(argv: list[str] | None = None):
     p.add_argument("--rollouts", type=int, default=None, help="override the per-task tuned rollout length (rl/agents.py)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", default="cuda", help="cuda (default; raises without a card) or cpu")
+    p.add_argument("--shard", action="store_true",
+                   help="one env slice per torchrun rank (NCCL on the cards, gloo with --device cpu)")
     p.add_argument("--checkpoint_dir", default=None)
     p.add_argument("--checkpoint_interval", type=int, default=50)
     p.add_argument("--log_interval", type=int, default=1)
@@ -67,6 +77,20 @@ def main(argv: list[str] | None = None):
                    help="agent config override on top of the per-task tuned values, e.g. --agent_cfg lr_max=1e-3")
     args = p.parse_args(argv)
 
+    group, device = None, args.device
+    if args.shard:
+        from tacex_tpu_torch.parallel import close_env_parallel, init_env_parallel
+
+        group = init_env_parallel(args.num_envs, device)
+        device = group.device
+    try:
+        return _train(args, group, device)
+    finally:
+        if group is not None:
+            close_env_parallel()
+
+
+def _train(args, group, device):
     import torch
 
     from tacex_tpu_torch import envs
@@ -75,20 +99,27 @@ def main(argv: list[str] | None = None):
     from tacex_tpu_torch.rl.agents import agent_cfg_for
     from tacex_tpu_torch.utils import LiveVisualizer
 
+    lead = group is None or group.rank == 0  # the rank that prints and writes
+    say = print if lead else (lambda *a, **k: None)
     env_overrides = parse_overrides(args.env_cfg)
-    env = envs.make(args.task, num_envs=args.num_envs, device=args.device, **env_overrides)
+    local_envs = args.num_envs if group is None else group.local_envs
+    env = envs.make(args.task, num_envs=local_envs, device=device, **env_overrides)
     if args.algorithm == "sac":
         cfg = agent_cfg_for(args.task, "sac", rollout_steps=args.rollouts, **parse_overrides(args.agent_cfg))
-        trainer, steps_per_iter = SAC(env, cfg), args.num_envs * cfg.rollout_steps
+        trainer, steps_per_iter = SAC(env, cfg, group=group), args.num_envs * cfg.rollout_steps
     else:
         cfg = agent_cfg_for(args.task, "ppo", rollouts=args.rollouts, **parse_overrides(args.agent_cfg))
-        trainer, steps_per_iter = PPO(env, cfg), args.num_envs * cfg.rollouts
-    print(f"agent cfg ({args.algorithm}): {cfg}")
+        trainer, steps_per_iter = PPO(env, cfg, group=group), args.num_envs * cfg.rollouts
+    say(f"agent cfg ({args.algorithm}): {cfg}")
+    if group is not None:
+        say(f"sharded over {group.world_size} ranks ({group.backend}): {group.local_envs} envs a rank")
     trainer.init(args.seed)
     policy = trainer.actor if args.algorithm == "sac" else trainer.net
 
     ckpt_dir = Path(args.checkpoint_dir).absolute() if args.checkpoint_dir else None
     run_dir = Path(args.viz_dir).absolute() if args.viz_dir else ckpt_dir
+    if not lead:
+        ckpt_dir = run_dir = None
     metrics_fp = None
     if run_dir is not None:
         run_dir.mkdir(parents=True, exist_ok=True)
@@ -98,7 +129,7 @@ def main(argv: list[str] | None = None):
         metrics_fp = open(run_dir / "metrics.jsonl", "a")
     if ckpt_dir is not None:
         ckpt_dir.mkdir(parents=True, exist_ok=True)
-    viz = LiveVisualizer(args.viz_dir) if args.viz_dir else None
+    viz = LiveVisualizer(args.viz_dir) if args.viz_dir and lead else None
 
     saved: list[Path] = []
     t_start = time.time()
@@ -116,7 +147,7 @@ def main(argv: list[str] | None = None):
                     "steps_per_sec": round(steps_per_iter / dt, 1),
                     **{k: round(v, 5) for k, v in metrics.items()},
                 }
-                print(json.dumps(line), flush=True)
+                say(json.dumps(line), flush=True)
                 if metrics_fp is not None:
                     metrics_fp.write(json.dumps(line) + "\n")
                     metrics_fp.flush()
@@ -137,10 +168,10 @@ def main(argv: list[str] | None = None):
         if metrics_fp is not None:
             metrics_fp.close()
     if viz is not None:
-        print(f"metric plots -> {viz.save_plots()}")
+        say(f"metric plots -> {viz.save_plots()}")
     if metrics_fp is not None:
-        print(f"metrics jsonl -> {run_dir / 'metrics.jsonl'}")
-    print(f"done: {trainer.steps} env steps in {time.time() - t_start:.1f}s")
+        say(f"metrics jsonl -> {run_dir / 'metrics.jsonl'}")
+    say(f"done: {trainer.steps} env steps in {time.time() - t_start:.1f}s")
     return trainer
 
 

@@ -31,9 +31,17 @@
 //   * the 48 output bytes go out as three 16-byte stores;
 //   * a ragged P (not a multiple of 4) takes scalar index loads and stores
 //     and masks the last quad; a ragged env range is a shorter loop.
-// Everything stays f32 (no TF32, no bf16, no fast-math): the features reach
+// The arithmetic stays f32 (no TF32, no fast-math): the features reach
 // 640^2 = 4.1e5 and the quadratic cancels. A row index outside the table
 // writes NaN instead of reading out of bounds, since the kernel cannot raise.
+//
+// A second entry, tacex_lut_shade_bf16, takes the table in bf16 (the JAX
+// package's shade(lut_dtype=jnp.bfloat16): the table is rounded, the rows
+// gathered, then widened to f32 for the same f32 feature dot). A bf16 row is
+// 18 x 2 = 36 bytes, so it starts on a 4-byte boundary whatever its index
+// and never on a 16-byte one for two rows running: it loads as nine 4-byte
+// words, each holding two entries that widen to f32 by a shift (bf16 is the
+// high half of an f32). Half the bytes of an f32 row, in 9 loads instead of 5.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -85,13 +93,42 @@ __device__ __forceinline__ float coeff(const Row& row, int i) {
   return row.odd ? odd : even;
 }
 
+// The table as the kernel reads it: an f32 table of 72-byte rows ...
+struct F32Table {
+  using RowT = Row;
+  const float* p;
+  __device__ __forceinline__ RowT load(int r) const { return load_row(p, r); }
+  __device__ __forceinline__ static float at(const RowT& row, int i) { return coeff(row, i); }
+};
+
+// ... or a bf16 table of 36-byte rows, read as nine 4-byte words. Entry 2j
+// is the low half of word j (little-endian), entry 2j + 1 the high half.
+struct Bf16Row {
+  uint32_t w[9];
+};
+
+struct Bf16Table {
+  using RowT = Bf16Row;
+  const uint32_t* p;
+  __device__ __forceinline__ RowT load(int r) const {
+    RowT row;
+    const uint32_t* at = p + static_cast<int64_t>(r) * 9;
+#pragma unroll
+    for (int i = 0; i < 9; ++i) row.w[i] = __ldg(at + i);
+    return row;
+  }
+  __device__ __forceinline__ static float at(const RowT& row, int i) {
+    const uint32_t w = row.w[i >> 1];
+    return __uint_as_float((i & 1) ? (w & 0xffff0000u) : (w << 16));
+  }
+};
+
 // kVec: P % 4 == 0 and 16-byte aligned idx and out, so index rows and output
 // rows are 16-byte aligned and every quad is whole.
-template <bool kVec>
+template <bool kVec, class Table>
 __global__ void __launch_bounds__(kMaxThreads)
 lut_shade_kernel(const int32_t* __restrict__ idx, const float* __restrict__ feats,
-                 const float* __restrict__ table, float* __restrict__ out, int n, int p,
-                 int rows) {
+                 const Table table, float* __restrict__ out, int n, int p, int rows) {
   const int p0 = (blockIdx.x * blockDim.x + threadIdx.x) * 4;
   if (p0 >= p) return;
   const int live = min(4, p - p0);
@@ -112,11 +149,11 @@ lut_shade_kernel(const int32_t* __restrict__ idx, const float* __restrict__ feat
     if (e + 1 < n1) next = load_idx<kVec>(idx, static_cast<int64_t>(e + 1) * p + p0, live);
     const int r[4] = {cur.x, cur.y, cur.z, cur.w};
     bool bad[4];
-    Row row[4];
+    typename Table::RowT row[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       bad[q] = r[q] < 0 || r[q] >= rows;
-      row[q] = load_row(table, bad[q] ? 0 : r[q]);
+      row[q] = table.load(bad[q] ? 0 : r[q]);
     }
     float o[12];
 #pragma unroll
@@ -124,9 +161,9 @@ lut_shade_kernel(const int32_t* __restrict__ idx, const float* __restrict__ feat
       float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
 #pragma unroll
       for (int k = 0; k < 6; ++k) {
-        a0 += f[k][q] * coeff(row[q], 3 * k + 0);
-        a1 += f[k][q] * coeff(row[q], 3 * k + 1);
-        a2 += f[k][q] * coeff(row[q], 3 * k + 2);
+        a0 += f[k][q] * Table::at(row[q], 3 * k + 0);
+        a1 += f[k][q] * Table::at(row[q], 3 * k + 1);
+        a2 += f[k][q] * Table::at(row[q], 3 * k + 2);
       }
       o[3 * q + 0] = bad[q] ? nan : a0;
       o[3 * q + 1] = bad[q] ? nan : a1;
@@ -146,22 +183,36 @@ lut_shade_kernel(const int32_t* __restrict__ idx, const float* __restrict__ feat
   }
 }
 
-}  // namespace
-
-// Returns the CUDA error of the launch (0 = cudaSuccess). Launches on
-// `stream` and does not synchronise.
-extern "C" int tacex_lut_shade(const int32_t* idx, const float* feats, const float* table,
-                               float* out, int n, int p, int rows, void* stream) {
+template <class Table>
+int launch(const int32_t* idx, const float* feats, Table table, float* out, int n, int p, int rows,
+           void* stream) {
   if (n < 0 || p < 1 || rows < 1) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   const int quads = (p + 3) / 4;
   const int threads = min(kMaxThreads, (quads + 31) / 32 * 32);
   const dim3 grid((quads + threads - 1) / threads, (n + kEnvsPerBlock - 1) / kEnvsPerBlock);
-  if (grid.y > 65535 || reinterpret_cast<uintptr_t>(table) % 16 != 0) return cudaErrorInvalidValue;
+  if (grid.y > 65535) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p % 4 == 0 && reinterpret_cast<uintptr_t>(idx) % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0)
-    lut_shade_kernel<true><<<grid, threads, 0, s>>>(idx, feats, table, out, n, p, rows);
+    lut_shade_kernel<true, Table><<<grid, threads, 0, s>>>(idx, feats, table, out, n, p, rows);
   else
-    lut_shade_kernel<false><<<grid, threads, 0, s>>>(idx, feats, table, out, n, p, rows);
+    lut_shade_kernel<false, Table><<<grid, threads, 0, s>>>(idx, feats, table, out, n, p, rows);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// Each returns the CUDA error of the launch (0 = cudaSuccess). They launch on
+// `stream` and do not synchronise. The f32 table must be 16-byte aligned,
+// the bf16 table (raw 16-bit words) 4-byte aligned.
+extern "C" int tacex_lut_shade(const int32_t* idx, const float* feats, const float* table,
+                               float* out, int n, int p, int rows, void* stream) {
+  if (reinterpret_cast<uintptr_t>(table) % 16 != 0) return cudaErrorInvalidValue;
+  return launch(idx, feats, F32Table{table}, out, n, p, rows, stream);
+}
+
+extern "C" int tacex_lut_shade_bf16(const int32_t* idx, const float* feats, const uint16_t* table,
+                                    float* out, int n, int p, int rows, void* stream) {
+  if (reinterpret_cast<uintptr_t>(table) % 4 != 0) return cudaErrorInvalidValue;
+  return launch(idx, feats, Bf16Table{reinterpret_cast<const uint32_t*>(table)}, out, n, p, rows, stream);
 }

@@ -33,6 +33,7 @@ from ...render.depth_camera import SdfScene, render_depth_batch
 from ...sensors.gelsight.fots import marker_motion as fots
 from ...sensors.gelsight.sensor import GelSightSensor, GelSightSensorState
 from ...sensors.gelsight.sensor_cfg import gelsight_mini_cfg
+from ...parallel.mesh import REPLICATED
 from ..base import DirectRLEnv, DirectRLEnvCfg
 
 GELPAD_HALF = (0.020750 / 2, 0.025250 / 2, 0.004500 / 2)
@@ -142,6 +143,8 @@ class DomainRandomization:
 
 @dataclasses.dataclass(frozen=True)
 class BallRollingState:
+    ENV_LAYOUT = {"curriculum": REPLICATED}  # parallel.mesh: every other field leads with the env axis
+
     arm: franka.ArmState
     ball_pos: torch.Tensor  # (N, 3)
     ball_quat: torch.Tensor  # (N, 4)
@@ -523,7 +526,7 @@ class BallRollingEnv(DirectRLEnv):
 
     def _update_curriculum(self, state) -> torch.Tensor:
         c = self.cfg
-        mean_rew = state.total_episode_rew.mean()
+        mean_rew = self.env_mean(state.total_episode_rew)  # over every rank's envs when sharded
 
         def adjust(i, name, num_levels):
             level = state.curriculum[i]

@@ -15,6 +15,7 @@ import torch
 
 from ..core.config import configclass
 from ..core.device import DEFAULT_DEVICE, resolve
+from ..parallel import mesh
 
 
 @configclass
@@ -36,9 +37,15 @@ class DirectRLEnv:
     """Protocol every task env implements: ``init_state() -> state``,
     ``reset_all(state) -> (state, obs)`` and
     ``step(state, action) -> (state, obs, reward, terminated, truncated, info)``.
+
+    ``env_mean`` is the mean over envs of an (N,) tensor that feeds the
+    state (the curriculum's mean episode reward): over every rank's envs
+    when ``env_group`` is the ``EnvGroup`` of the rank whose slice the env
+    holds (``parallel.mesh.bind_env`` sets it), over the env's own otherwise.
     """
 
     cfg: DirectRLEnvCfg
+    env_group = None
 
     def __init__(self, cfg: DirectRLEnvCfg, device=DEFAULT_DEVICE):
         self.cfg = cfg
@@ -58,6 +65,27 @@ class DirectRLEnv:
 
     def step(self, state, action):
         raise NotImplementedError
+
+    def env_mean(self, x: torch.Tensor) -> torch.Tensor:
+        return mesh.mean_over_envs(x, self.env_group)
+
+    def rollout(self, state, actions: torch.Tensor):
+        """``step`` over the (T, N, A) ``actions``: the counterpart of the
+        JAX package's ``rollout_fn``. Returns (the last state, (obs, reward,
+        terminated, truncated)), each leaf stacked to (T, N, ...) in buffers
+        allocated at the first step; no value is read back to the host."""
+        out = None
+        for t in range(actions.shape[0]):
+            state, obs, reward, term, trunc, _ = self.step(state, actions[t])
+            step = (obs, reward, term, trunc)
+            if out is None:
+                alloc = lambda x: torch.empty((actions.shape[0],) + tuple(x.shape), dtype=x.dtype, device=x.device)
+                out = ({k: alloc(v) for k, v in obs.items()}, alloc(reward), alloc(term), alloc(trunc))
+            for k, v in obs.items():
+                out[0][k][t] = v
+            for buf, v in zip(out[1:], step[1:]):
+                buf[t] = v
+        return state, out
 
 
 _REGISTRY: dict[str, tuple[type, Any]] = {}

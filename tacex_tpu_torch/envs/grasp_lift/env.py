@@ -42,6 +42,7 @@ from ...physics.soft.mesh import box_tet_mesh, union_meshes
 from ...sensors.gelsight.fots import marker_motion as fots
 from ...sensors.gelsight.sensor import GelSightSensor, GelSightSensorState
 from ...sensors.gelsight.sensor_cfg import gelsight_mini_cfg
+from ...parallel.mesh import PAD_MAJOR
 from ..base import DirectRLEnv, DirectRLEnvCfg
 
 PAD_SIZE = (0.01, 0.03, 0.03)  # per-pad box (m)
@@ -196,6 +197,8 @@ class GraspLiftEnvCfg(DirectRLEnvCfg):
 
 @dataclasses.dataclass(frozen=True)
 class GraspLiftState:
+    ENV_LAYOUT = {"sensor": PAD_MAJOR}  # parallel.mesh: every other field leads with the env axis
+
     gel: SoftBodyState  # the union of both pads
     cube: AbdState  # B = 1
     squeeze: torch.Tensor  # (N,) inward travel per pad (m)

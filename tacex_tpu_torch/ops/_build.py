@@ -116,4 +116,6 @@ def load_library() -> ctypes.CDLL:
     lib.tacex_deformation_pyramid_plan.restype = i32
     lib.tacex_lut_shade.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.tacex_lut_shade.restype = i32
+    lib.tacex_lut_shade_bf16.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
+    lib.tacex_lut_shade_bf16.restype = i32
     return lib

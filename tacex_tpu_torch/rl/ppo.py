@@ -14,6 +14,15 @@ waiting for it. ``gae``, ``loss`` and ``update`` take tensors and return
 tensors, so a caller can feed them a trajectory and permutations of its own.
 The JAX trainer is functional (a ``TrainState`` goes in and out); this one
 holds its state and ``train_step`` advances it.
+
+With an ``EnvGroup`` (``parallel/group.py``) the trainer holds one rank's
+slice of the envs, and every quantity that spans envs is made global
+through ``parallel/mesh.py``: the curriculum's mean, the advantage
+normalisation, the value scaler, the minibatches (global permutations,
+drawn on the host from the shared generator, of which each rank computes
+its own rows, every loss term summed over them and divided by the global
+minibatch size), one all-reduce of the flattened gradient per minibatch
+before the clip, the KL and the metrics.
 """
 
 from __future__ import annotations
@@ -23,6 +32,8 @@ import dataclasses
 import torch
 
 from ..core.config import configclass
+from ..parallel import mesh
+from ..parallel.group import trainer_seeds
 from .networks import ActorCritic, gaussian_entropy, gaussian_log_prob
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -67,8 +78,10 @@ class RunningScaler:
         f = lambda v: torch.full((), v, dtype=torch.float32, device=device)
         return RunningScaler(f(0.0), f(1.0), f(1e-4))
 
-    def update(self, x: torch.Tensor) -> "RunningScaler":
-        bm, bv, bc = x.mean(), x.var(unbiased=False), x.numel()
+    def update(self, x: torch.Tensor, group=None) -> "RunningScaler":
+        """Fold in the moments of ``x`` (over every rank's envs with a group)."""
+        bm, bv = mesh.moments(x, group)
+        bc = x.numel() * mesh.world_size(group)
         delta = bm - self.mean
         tot = self.count + bc
         new_mean = self.mean + delta * bc / tot
@@ -85,22 +98,32 @@ class RunningScaler:
 
 
 class PPO:
-    """PPO trainer bound to a ``DirectRLEnv``; it runs on the env's device."""
+    """PPO trainer bound to a ``DirectRLEnv``; it runs on the env's device.
+    With ``group`` the env holds the rank's ``group.local_envs`` envs, and
+    its curriculum takes the mean over every rank's envs."""
 
-    def __init__(self, env, cfg: PPOConfig | None = None):
+    def __init__(self, env, cfg: PPOConfig | None = None, group=None):
         self.env = env
         self.cfg = cfg or PPOConfig()
         self.device = env.device
         self.net: ActorCritic | None = None
+        self.group = group
+        self.num_envs = mesh.bind_env(env, group)  # over every rank
 
     # ------------------------------------------------------------------ setup
     def init(self, seed: int) -> None:
         """Reset the env and draw the network: the env's and the trainer's
-        generators are seeded from ``seed``."""
+        generators are seeded from ``seed`` (and the rank, with a group:
+        ``parallel.group.trainer_seeds``). ``generator`` draws the network and the
+        permutations, ``explore`` the rollout's actions: one generator
+        unless the group spans ranks."""
         dev = self.device
-        s_env, s_loop = torch.randint(0, 2**62, (2,), generator=torch.Generator().manual_seed(seed)).tolist()
+        s_env, s_explore, s_loop = trainer_seeds(seed, self.group)
         self.env.generator.manual_seed(s_env)
         self.generator = torch.Generator(device=dev).manual_seed(s_loop)
+        self.explore = self.generator if s_explore is None else torch.Generator(device=dev).manual_seed(s_explore)
+        # the permutations of a group, drawn on the host alike on every rank
+        self.host_generator = None if self.group is None else torch.Generator().manual_seed(s_loop)
         self.env_state, self.obs = self.env.reset_all(self.env.init_state())
         vision = self.obs.get("vision_obs")
         self.net = ActorCritic(
@@ -133,7 +156,7 @@ class PPO:
         for t in range(self.cfg.rollouts):
             obs = self.obs
             mean, log_std, value = self.net(obs)
-            action = mean + torch.exp(log_std) * torch.randn(mean.shape, generator=self.generator, device=self.device)
+            action = mean + torch.exp(log_std) * torch.randn(mean.shape, generator=self.explore, device=self.device)
             logp = gaussian_log_prob(mean, log_std, action)
             self.env_state, self.obs, reward, term, trunc, info = self.env.step(self.env_state, action)
             done = (term | trunc).to(torch.float32)
@@ -163,31 +186,37 @@ class PPO:
             advs[t] = adv_next
             v_next = values[t]
         returns = advs + values
-        advs = (advs - advs.mean()) / (advs.std(unbiased=False) + 1e-8)
+        mean, var = mesh.moments(advs, self.group)  # over T x every rank's envs
+        advs = (advs - mean) / (torch.sqrt(var) + 1e-8)
         return advs, returns
 
     # ------------------------------------------------------------------- loss
-    def loss(self, batch):
+    def loss(self, batch, denom: int | None = None):
         """``batch``: (obs, action, old_logp, old_value, adv, ret_scaled).
-        Returns (loss, (policy loss, value loss, entropy, approximate KL))."""
+        Returns (loss, (policy loss, value loss, entropy, approximate KL)),
+        each term a sum over the batch's rows divided by ``denom`` (default:
+        the batch's row count, the mean; with a group, the rows of the whole
+        minibatch over every rank, of which this batch is the rank's share)."""
         c = self.cfg
         obs, action, old_logp, old_value, adv, ret_scaled = batch
+        denom = adv.shape[0] if denom is None else denom
+        avg = lambda x: x.sum() / denom  # noqa: E731
         mean, log_std, value = self.net(obs)
         logp = gaussian_log_prob(mean, log_std, action)
         ratio = torch.exp(logp - old_logp)
         surr = torch.minimum(ratio * adv, torch.clamp(ratio, 1 - c.ratio_clip, 1 + c.ratio_clip) * adv)
-        policy_loss = -surr.mean()
+        policy_loss = -avg(surr)
 
         if c.clip_predicted_values:
             # the larger of the clipped and unclipped errors: plain clipping
             # kills the value gradient once |target - old| > clip
             v_clipped = old_value + torch.clamp(value - old_value, -c.value_clip, c.value_clip)
-            value_loss = c.value_loss_scale * torch.maximum((ret_scaled - value) ** 2, (ret_scaled - v_clipped) ** 2).mean()
+            value_loss = c.value_loss_scale * avg(torch.maximum((ret_scaled - value) ** 2, (ret_scaled - v_clipped) ** 2))
         else:
-            value_loss = c.value_loss_scale * ((ret_scaled - value) ** 2).mean()
+            value_loss = c.value_loss_scale * avg((ret_scaled - value) ** 2)
 
-        entropy = gaussian_entropy(log_std).mean()
-        kl = ((logp - old_logp) ** 2).mean() * 0.5
+        entropy = avg(gaussian_entropy(log_std))
+        kl = avg((logp - old_logp) ** 2) * 0.5
         return policy_loss + value_loss - c.entropy_loss_scale * entropy, (policy_loss, value_loss, entropy, kl)
 
     # ----------------------------------------------------------------- update
@@ -212,26 +241,45 @@ class PPO:
             for p, d in zip(self.params, direction):
                 p.sub_(self.lr * d)
 
+    def minibatch_grads(self, flat, idx: torch.Tensor, mb_size: int):
+        """(gradient, loss, KL) of one minibatch of ``mb_size`` rows over
+        every rank, of which this rank holds the rows ``idx`` of ``flat``:
+        each term summed over the rank's rows and divided by ``mb_size``,
+        then summed over the ranks by one all-reduce of their concatenation
+        (with no group, the concatenation alone: ``mesh.all_reduce_flat``)."""
+        obs, *rest = flat
+        batch = ({k: v.index_select(0, idx) for k, v in obs.items()}, *(x.index_select(0, idx) for x in rest))
+        loss, (_, _, _, kl) = self.loss(batch, denom=mb_size)
+        grads = torch.autograd.grad(loss, self.params, materialize_grads=True)  # zeros for a rank with no row
+        *grads, loss, kl = mesh.all_reduce_flat([*grads, loss, kl], self.group)
+        return grads, loss, kl
+
     def update(self, flat, perms) -> torch.Tensor:
         """One pass per row of ``perms`` (epochs, total) over ``flat`` =
         (obs, action, logp, value, adv, ret_scaled), each leaf (total, ...).
         An epoch takes ``min(mini_batches, total)`` minibatches of
         ``total // n_mb`` indices from its permutation (the tail is dropped),
         then moves the learning rate by the KL-adaptive rule. Returns the mean
-        loss over the epochs."""
+        loss over the epochs.
+
+        With a group, ``flat`` is the rank's (T n_local, ...) slice and
+        ``perms`` (host) index the global (T N) trajectory: each rank takes
+        its own rows of each minibatch (``mesh.local_minibatch_rows``; maybe
+        none). Each minibatch goes through ``minibatch_grads``."""
         c = self.cfg
-        obs, *rest = flat
-        total = rest[0].shape[0]
+        total = flat[1].shape[0] * mesh.world_size(self.group)
         n_mb = min(c.mini_batches, total)
         mb_size = total // n_mb
+        if self.group is None:
+            rows = [[perm[i * mb_size : (i + 1) * mb_size] for i in range(n_mb)] for perm in perms]
+        else:
+            rows = mesh.local_minibatch_rows(perms, n_mb, mb_size, self.group, self.device)
         epoch_losses = []
-        for perm in perms:
+        for epoch_rows in rows:
             kl_sum, loss_sum = 0.0, 0.0
-            for i in range(n_mb):
-                idx = perm[i * mb_size : (i + 1) * mb_size]
-                batch = ({k: v.index_select(0, idx) for k, v in obs.items()}, *(x.index_select(0, idx) for x in rest))
-                loss, (_, _, _, kl) = self.loss(batch)
-                self._apply_gradients(torch.autograd.grad(loss, self.params))
+            for idx in epoch_rows:
+                grads, loss, kl = self.minibatch_grads(flat, idx, mb_size)
+                self._apply_gradients(grads)
                 kl_sum, loss_sum = kl_sum + kl.detach(), loss_sum + loss.detach()
             mean_kl = kl_sum / n_mb
             lr = self.lr
@@ -241,35 +289,40 @@ class PPO:
         return torch.stack(epoch_losses).mean()
 
     # ------------------------------------------------------------- train step
+    def permutations(self, total: int) -> torch.Tensor:
+        """The epochs' permutations of the ``total`` rows of the (global)
+        trajectory: on the device, or on the host with a group."""
+        c = self.cfg
+        if self.group is None:
+            # the order of uniform draws is a uniformly random permutation
+            return torch.rand((c.learning_epochs, total), generator=self.generator, device=self.device).argsort(dim=1)
+        return torch.stack([torch.randperm(total, generator=self.host_generator) for _ in range(c.learning_epochs)])
+
     def train_step(self) -> dict[str, torch.Tensor]:
-        """One PPO iteration; returns its metrics as 0-dim device tensors."""
+        """One PPO iteration; returns its metrics as 0-dim device tensors
+        (means over every rank's envs, with a group)."""
         c = self.cfg
         (obs, action, logp, value, reward, done, env_log), last_value = self.rollout()
         adv, returns = self.gae(value, reward, done, last_value)
         if c.value_preprocessor:
-            self.value_scaler = self.value_scaler.update(returns)
+            self.value_scaler = self.value_scaler.update(returns, self.group)
             returns = self.value_scaler.scale(returns)
 
-        total = c.rollouts * self.env.cfg.num_envs
-        flatten = lambda x: x.reshape((total,) + tuple(x.shape[2:]))
+        local = c.rollouts * self.env.cfg.num_envs
+        flatten = lambda x: x.reshape((local,) + tuple(x.shape[2:]))
         flat = ({k: flatten(v) for k, v in obs.items()}, *(flatten(x) for x in (action, logp, value, adv, returns)))
-        # the order of uniform draws is a uniformly random permutation
-        perms = torch.rand((c.learning_epochs, total), generator=self.generator, device=self.device).argsort(dim=1)
-        loss = self.update(flat, perms)
-        self.steps += total
-        return {
-            "loss": loss,
-            "reward_per_step": reward.mean(),
-            "episode_done_frac": done.mean(),
-            "lr": self.lr,
-            "value_pred_mean": value.mean(),
-            # per-env episode metrics averaged over the rollout window
-            **{k: v.mean() for k, v in env_log.items()},
-        }
+        loss = self.update(flat, self.permutations(c.rollouts * self.num_envs))
+        self.steps += c.rollouts * self.num_envs
+        # per-env episode metrics averaged over the rollout window
+        means = {"reward_per_step": reward.mean(), "episode_done_frac": done.mean(), "value_pred_mean": value.mean(),
+                 **{k: v.mean() for k, v in env_log.items()}}
+        means = dict(zip(means, mesh.mean_over_ranks(torch.stack(list(means.values())), self.group).unbind()))
+        return {"loss": loss, "reward_per_step": means.pop("reward_per_step"),
+                "episode_done_frac": means.pop("episode_done_frac"), "lr": self.lr, **means}
 
     @torch.no_grad()
     def act(self, obs, deterministic: bool = True) -> torch.Tensor:
         mean, log_std, _ = self.net(obs)
         if deterministic:
             return mean
-        return mean + torch.exp(log_std) * torch.randn(mean.shape, generator=self.generator, device=self.device)
+        return mean + torch.exp(log_std) * torch.randn(mean.shape, generator=self.explore, device=self.device)

@@ -13,6 +13,14 @@ and the buffer's write pointer and fill level are Python ints, known on the
 host from the number of env steps taken, so the warm-up switch is a Python
 branch and the buffer's indices are drawn in ``[0, size)`` without asking
 the card. Dict observations are flattened (sorted keys) into the buffer.
+
+With an ``EnvGroup`` (``parallel/group.py``) each rank steps its slice of
+the envs and the buffer stays global, as the JAX package's replicated one:
+each step's transitions are all-gathered in global env order into a buffer
+that every rank holds whole, whose ``ptr`` and ``size`` count global rows.
+The batches and the update's noise come from the shared generator, so
+every rank computes the same update with no gradient all-reduce; only the
+exploration noise is the rank's own.
 """
 
 from __future__ import annotations
@@ -24,6 +32,8 @@ import torch
 from torch import nn
 
 from ..core.config import configclass
+from ..parallel import mesh
+from ..parallel.group import trainer_seeds
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 LOG_STD_MIN, LOG_STD_MAX = -10.0, 2.0
@@ -164,23 +174,30 @@ class _Adam:
 
 
 class SAC:
-    """SAC trainer bound to a ``DirectRLEnv``; it runs on the env's device."""
+    """SAC trainer bound to a ``DirectRLEnv``; it runs on the env's device.
+    With ``group`` the env holds the rank's ``group.local_envs`` envs."""
 
-    def __init__(self, env, cfg: SACConfig | None = None):
+    def __init__(self, env, cfg: SACConfig | None = None, group=None):
         self.env = env
         self.cfg = cfg or SACConfig()
         self.device = env.device
+        self.group = group
+        self.num_envs = mesh.bind_env(env, group)  # over every rank
         self.act_dim = env.cfg.action_space
         self.target_entropy = -self.act_dim * self.cfg.target_entropy_scale
 
     # ------------------------------------------------------------------ setup
     def init(self, seed: int) -> None:
         """Reset the env and draw the networks: the env's and the trainer's
-        generators are seeded from ``seed``."""
+        generators are seeded from ``seed`` (and the rank, with a group:
+        ``parallel.group.trainer_seeds``). ``generator`` draws the networks, the
+        batches and the update's noise, ``explore`` the rollout's actions:
+        one generator unless the group spans ranks."""
         c, dev = self.cfg, self.device
-        s_env, s_loop = torch.randint(0, 2**62, (2,), generator=torch.Generator().manual_seed(seed)).tolist()
+        s_env, s_explore, s_loop = trainer_seeds(seed, self.group)
         self.env.generator.manual_seed(s_env)
         self.generator = torch.Generator(device=dev).manual_seed(s_loop)
+        self.explore = self.generator if s_explore is None else torch.Generator(device=dev).manual_seed(s_explore)
         self.env_state, obs = self.env.reset_all(self.env.init_state())
         self.obs_flat = _flatten_obs(obs)
         obs_dim = self.obs_flat.shape[-1]
@@ -216,6 +233,13 @@ class SAC:
 
     def _normal(self, shape) -> torch.Tensor:
         return torch.randn(shape, generator=self.generator, device=self.device)
+
+    def _explore_normal(self, shape) -> torch.Tensor:
+        """The exploration noise: from the rank's own generator, or through
+        ``_normal`` where the two generators are one."""
+        if self.explore is self.generator:
+            return self._normal(shape)
+        return torch.randn(shape, generator=self.explore, device=self.device)
 
     # ----------------------------------------------------------------- update
     def update(self, batch, eps_next: torch.Tensor, eps_actor: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -259,14 +283,19 @@ class SAC:
         with torch.no_grad():
             for _ in range(c.rollout_steps):
                 mean, log_std = self.actor(self.obs_flat)
-                act, _ = _squash(mean, log_std, self._normal(mean.shape))
+                act, _ = _squash(mean, log_std, self._explore_normal(mean.shape))
                 self.env_state, next_obs, rew, term, _, _ = self.env.step(self.env_state, act)
                 next_flat = _flatten_obs(next_obs)
-                self.buffer.add_batch(self.obs_flat, act, rew, next_flat, term.to(torch.float32))
+                batch = (self.obs_flat, act, rew, next_flat, term.to(torch.float32))
+                # one all-gather of the step's transitions, in global env order (the identity with no group)
+                joined = mesh.all_gather_envs(torch.cat([x.reshape(x.shape[0], -1) for x in batch], 1), self.group)
+                batch = [y.reshape((-1,) + tuple(x.shape[1:]))
+                         for y, x in zip(joined.split([x[0].numel() for x in batch], 1), batch)]
+                self.buffer.add_batch(*batch)
                 self.obs_flat = next_flat
-                rews.append(rew.mean())
+                rews.append(batch[2].mean())
 
-        added = c.rollout_steps * self.env.cfg.num_envs
+        added = c.rollout_steps * self.num_envs
         zero = torch.zeros((), device=self.device)
         closs, aloss = [zero], [zero]
         if self.steps + added >= c.warmup_steps:
@@ -278,19 +307,21 @@ class SAC:
                 closs.append(cl)
                 aloss.append(al)
         self.steps += added
-        return {
+        metrics = {
             "reward_per_step": torch.stack(rews).mean() if rews else zero,
             "critic_loss": torch.stack(closs).mean(),
             "actor_loss": torch.stack(aloss).mean(),
             "alpha": torch.exp(self.log_alpha.detach()),
         }
+        # the same on every rank by construction; the mean keeps them so
+        return dict(zip(metrics, mesh.mean_over_ranks(torch.stack(list(metrics.values())), self.group).unbind()))
 
     @torch.no_grad()
     def act(self, obs: dict, deterministic: bool = True) -> torch.Tensor:
         mean, log_std = self.actor(_flatten_obs(obs))
         if deterministic:
             return torch.tanh(mean)
-        return _squash(mean, log_std, self._normal(mean.shape))[0]
+        return _squash(mean, log_std, self._explore_normal(mean.shape))[0]
 
 
 # ----------------------------------------------------------- flax parameters

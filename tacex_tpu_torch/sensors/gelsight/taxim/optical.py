@@ -1,8 +1,6 @@
 """Taxim optical simulation: height map -> tactile RGB (PyTorch).
 
-Port of ``tacex_tpu/sensors/gelsight/taxim/optical.py`` (its
-``orig_hm_fmt`` and ``lut_dtype`` options are not ported: no entry point of
-the JAX package uses them):
+Port of ``tacex_tpu/sensors/gelsight/taxim/optical.py``:
 
   1. gel-pad deformation: clamp the object height map against the gel rest
      surface, then the masked Gaussian pyramid (kernel ``ops/pyramid.py``);
@@ -14,7 +12,10 @@ the JAX package uses them):
      differentiable ops; ``compact_capacity`` shades every pixel from the
      125-row magnitude-bin-0 subtable (the same kernel, through
      ``dir_row_shade``) and then only the pixels of higher bins, compacted
-     with one ``topk``, from the full table;
+     with one ``topk``, from the full table (the same kernel, as one flat
+     row of pixels with their own features); ``lut_dtype=torch.bfloat16``
+     rounds the full table to bf16 (the kernel's bf16 entry widens each row
+     to f32), while the compact path's 125-row subtable stays f32;
   4. optional shadow pass: attenuation values ray-marched from the
      contact-boundary pixels along the calibrated light directions,
      composited with one scatter-min;
@@ -141,29 +142,41 @@ def _shade_bilinear(calib: TaximCalib, grad_mag: torch.Tensor, grad_dir: torch.T
     return (feats[..., None] * c.reshape(c.shape[:-1] + (6, 3))).sum(dim=-2)
 
 
-def _shade_compact(calib: TaximCalib, idx_mag: torch.Tensor, idx_dir: torch.Tensor, capacity: int) -> torch.Tensor:
-    """Every pixel from its magnitude-bin-0 row (the deformation halo, where
-    only the direction bin varies), then the ``capacity`` highest-numbered
-    pixels of magnitude bin >= 1 from their full-table rows, scattered over
-    the halo shade. Equal to the dense shade whenever those pixels fit the
-    capacity; pixels beyond it keep their halo shade."""
+def compact_rows(calib: TaximCalib, idx_mag: torch.Tensor, idx_dir: torch.Tensor, capacity: int):
+    """The compact path's contact pixels: the ``capacity`` highest-numbered
+    pixels of magnitude bin >= 1 of each image (filled up with lower ones).
+    Returns their (n, cap) positions and, as one flat row of n * cap pixels
+    for ``lut_shade``, their (1, n cap) full-table rows and (6, n cap)
+    features."""
     nb = calib.sensor_params.num_bins
     h, w = idx_mag.shape[-2:]
     hw = h * w
     n = idx_mag.numel() // hw
-    table = calib.poly_lut.reshape(nb * nb, 18)
-    tabs = F.pad(table[:nb].T, (0, 128 - nb))  # (18, 128)
-    out = dir_row_shade(idx_dir.reshape(n, hw).contiguous(), calib.features, tabs)  # (n, hw, 3)
-
     cap = min(int(capacity), hw)
     idx_mag = idx_mag.reshape(n, hw)
     pix = torch.arange(hw, dtype=torch.int32, device=idx_mag.device)
     pos = torch.topk(torch.where(idx_mag >= 1, pix + hw, pix), cap, dim=1).values
     pos = torch.where(pos >= hw, pos - hw, pos).long()  # (n, cap)
-    rows = torch.gather((idx_mag * nb + idx_dir.reshape(n, hw)).long(), 1, pos)
-    coeffs = table[rows].reshape(n, cap, 6, 3)
-    vals = (calib.features.T[pos][..., None] * coeffs).sum(dim=-2)  # (n, cap, 3)
-    out.scatter_(1, pos[..., None].expand(n, cap, 3), vals)
+    rows = torch.gather(idx_mag * nb + idx_dir.reshape(n, hw), 1, pos)
+    return pos, rows.reshape(1, n * cap), calib.features.index_select(1, pos.reshape(-1))
+
+
+def _shade_compact(calib: TaximCalib, idx_mag: torch.Tensor, idx_dir: torch.Tensor, capacity: int,
+                   table: torch.Tensor) -> torch.Tensor:
+    """Every pixel from its magnitude-bin-0 row (the deformation halo, where
+    only the direction bin varies; f32, as in the JAX package), then the
+    ``compact_rows`` pixels from their rows of ``table`` (the full table,
+    f32 or bf16), scattered over the halo shade. Equal to the dense shade
+    whenever the contact pixels fit the capacity; pixels beyond it keep
+    their halo shade."""
+    nb = calib.sensor_params.num_bins
+    h, w = idx_mag.shape[-2:]
+    n = idx_mag.numel() // (h * w)
+    tabs = F.pad(calib.poly_lut.reshape(nb * nb, 18)[:nb].T, (0, 128 - nb))  # (18, 128)
+    out = dir_row_shade(idx_dir.reshape(n, h * w).contiguous(), calib.features, tabs)  # (n, hw, 3)
+    pos, rows, feats = compact_rows(calib, idx_mag, idx_dir, capacity)
+    vals = lut_shade(rows, feats, table).reshape(pos.shape + (3,))
+    out.scatter_(1, pos[..., None].expand(vals.shape), vals)
     return out.reshape(tuple(idx_dir.shape) + (3,))
 
 
@@ -172,6 +185,7 @@ def shade(
     grad_mag: torch.Tensor,
     grad_dir: torch.Tensor,
     interp: str = "nearest",
+    lut_dtype: torch.dtype | None = None,
     compact_capacity: int | None = None,
 ) -> torch.Tensor:
     """Polynomial-LUT shading (..., h, w) -> (..., h, w, 3).
@@ -179,8 +193,11 @@ def shade(
     ``interp="nearest"`` takes each pixel's floor-binned LUT row (piecewise
     constant in the gradients: no gradient flows); with ``compact_capacity``
     it goes through the halo pass and the compacted contact pixels.
-    ``interp="bilinear"`` interpolates the LUT, which makes the optical model
-    differentiable in the height map."""
+    ``lut_dtype`` (None, ``torch.float32`` or ``torch.bfloat16``) is the
+    type the nearest shade reads the full table in; the features and the
+    sums stay f32. ``interp="bilinear"`` interpolates the LUT, which makes
+    the optical model differentiable in the height map; like the JAX
+    package's, it reads the f32 table whatever ``lut_dtype`` says."""
     h, w = grad_mag.shape[-2:]
     if (h, w) != calib.resolution:
         raise ValueError(f"gradients {h, w} != calib resolution {calib.resolution}; use calib.at_resolution()")
@@ -188,12 +205,17 @@ def shade(
         return _shade_bilinear(calib, grad_mag, grad_dir)
     if interp != "nearest":
         raise ValueError(f"interp {interp!r} is neither 'nearest' nor 'bilinear'")
+    if lut_dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"lut_dtype {lut_dtype} is none of None, torch.float32 and torch.bfloat16")
     nb = calib.sensor_params.num_bins
+    table = calib.poly_lut.reshape(nb * nb, 18)
+    if lut_dtype is not None:
+        table = table.to(lut_dtype)
     idx_mag, idx_dir = lut_bins(calib, grad_mag, grad_dir)
     if compact_capacity is not None:
-        return _shade_compact(calib, idx_mag, idx_dir, compact_capacity)
+        return _shade_compact(calib, idx_mag, idx_dir, compact_capacity, table)
     idx = (idx_mag * nb + idx_dir).reshape(-1, h * w).contiguous()
-    out = lut_shade(idx, calib.features, calib.poly_lut.reshape(nb * nb, 18))
+    out = lut_shade(idx, calib.features, table)
     return out.reshape(grad_mag.shape + (3,))
 
 
@@ -332,25 +354,32 @@ def render(
     height_map: torch.Tensor,
     press_depth: torch.Tensor | None = None,
     with_shadow: bool = False,
+    orig_hm_fmt: bool = False,
     interp: str = "nearest",
+    lut_dtype: torch.dtype | None = None,
     compact_capacity: int | None = None,
 ) -> torch.Tensor:
     """Tactile RGB (..., h, w, 3) in [0, 1] from height maps (..., h, w) mm
-    (0 = gel top, negative = pressed in). ``press_depth`` (...,) mm shifts
-    each map so its minimum sits that far below the gel top; ``with_shadow``
-    adds the shadow pass; ``interp`` and ``compact_capacity`` as in ``shade``."""
+    (0 = gel top, negative = pressed in). ``orig_hm_fmt`` takes the original
+    Taxim format instead (inverted and shifted by the gel map's maximum,
+    ``calib.gel_map_shift``). ``press_depth`` (...,) mm shifts each map so
+    its minimum sits that far below the gel top; ``with_shadow`` adds the
+    shadow pass; ``interp``, ``lut_dtype`` and ``compact_capacity`` as in
+    ``shade``."""
     lead = height_map.shape[:-2]
     h, w = height_map.shape[-2:]
     if (h, w) != calib.resolution:
         raise ValueError(f"height map {h, w} != calib resolution {calib.resolution}; use calib.at_resolution()")
     hm = height_map.reshape(-1, h, w).to(torch.float32)
+    if orig_hm_fmt:
+        hm = calib.gel_map_shift - hm
     if press_depth is not None:
         hm = shift_height_map(hm, torch.as_tensor(press_depth, dtype=torch.float32, device=hm.device).expand(lead).reshape(-1))
 
     deformed, contact_mask = compute_gel_deformation(calib, hm)
     deformed_px = deformed / calib.sensor_params.pixmm
     grad_mag, grad_dir = generate_normals(calib, -deformed_px)
-    raw = shade(calib, grad_mag, grad_dir, interp=interp, compact_capacity=compact_capacity)
+    raw = shade(calib, grad_mag, grad_dir, interp=interp, lut_dtype=lut_dtype, compact_capacity=compact_capacity)
     if with_shadow:
         img = shadowed_image(calib, raw, deformed_px, contact_mask, grad_dir)
     else:

@@ -141,22 +141,32 @@ def per_env_step(world):
 
 def _share_world(env_j):
     """Give the JAX env its family's coupled world, whose ``step`` is jitted
-    once for the process (``per_env_step``): the family's envs at
-    ``overrides`` build equal worlds (the ids differ only in their
+    once for the process (``per_env_step``), and its ``missed_barriers``
+    (which the step's log vmaps over the envs) jitted too: the family's envs
+    at ``overrides`` build equal worlds (the ids differ only in their
     observations)."""
     key = (type(env_j), env_j.cfg.num_envs, env_j.cfg.newton_iters, env_j.cfg.cg_iters, env_j.cfg.coupling_k)
     if key not in _WORLDS:
         world = env_j.world
         world.step = per_env_step(world)
+        world.missed_barriers = jax.jit(world.missed_barriers)
         _WORLDS[key] = world
     env_j.world = _WORLDS[key]
 
 
+# the JAX env's own helpers that its step calls eagerly, run as one jitted
+# function each: run eagerly, each of their operations compiles on its own
+# (~7 s of a Grasp-Lift step's first call, with missed_barriers)
+_JITTED = ("_observations", "_reset_where", "_aim_positions", "_pad_compression")
+
+
 def jax_step(env_j, state, action):
     """The JAX env's step (see the module docstring); its observations (the
-    GelSight stack in tactile mode) run as one jitted function too."""
-    if not hasattr(env_j._observations, "lower"):
-        env_j._observations = jax.jit(env_j._observations)
+    GelSight stack in tactile mode) and the other ``_JITTED`` helpers run as
+    one jitted function each."""
+    for name in _JITTED:
+        if not hasattr(getattr(env_j, name), "lower"):
+            setattr(env_j, name, jax.jit(getattr(env_j, name)))
     with mock.patch.object(jax.lax, "fori_loop", _python_fori_loop):
         return env_j.step(state, action)
 

@@ -95,6 +95,26 @@ def test_lut_shade_kernel_matches_plain(cuda):
     )
 
 
+@pytest.mark.parametrize("n,p", [(64, 768), (1, 766), (3, 76801)], ids=["frame", "ragged", "odd_rows"])
+def test_lut_shade_bf16_kernel_matches_plain(cuda, n, p):
+    """K2's bf16-table entry (36-byte rows, 4-byte loads) against the plain
+    version on the same bf16 table, at a whole frame, a ragged P and a P
+    whose rows start at every 4-byte offset; its launches count apart from
+    the f32 entry's. A row outside the table gives NaN."""
+    rng = np.random.default_rng(8)
+    rows = 15625
+    idx = torch.from_numpy(rng.integers(0, rows, (n, p)).astype(np.int32)).to(cuda)
+    feats = torch.from_numpy((rng.uniform(0, 640, (6, p)) ** 2).astype(np.float32)).to(cuda)
+    table = torch.from_numpy((rng.normal(size=(rows, 18)) * 1e-6).astype(np.float32)).to(cuda).to(torch.bfloat16)
+    before, before_f32 = tlut.lut_shade.bf16_launches, tlut.lut_shade.launches
+    out = tlut.lut_shade(idx, feats, table)
+    assert tlut.lut_shade.bf16_launches == before + 1 and tlut.lut_shade.launches == before_f32
+    torch.testing.assert_close(out, tlut.lut_shade_plain(idx, feats, table), atol=1e-5, rtol=0)
+    idx[0, -1] = rows
+    out = tlut.lut_shade(idx, feats, table)
+    assert torch.isnan(out[0, -1]).all() and torch.isfinite(out[0, :-1]).all()
+
+
 def test_pyramid_kernel_refuses_an_image_it_cannot_hold(cuda):
     """The image no cluster of 8 CTAs holds (the calibration's 480x640 frame
     with the sensor's sigmas) is no longer refused: the plan sends it to the
@@ -163,7 +183,7 @@ def test_wrappers_refuse_an_input_that_requires_grad(cuda):
 
 def test_compact_shade_equals_dense_shade_on_the_card(cuda):
     """At ``compact_capacity = h * w`` the compact path (K2 over the 125-row
-    subtable, then the compacted full-table rows) is the dense shade."""
+    subtable, then K2 over the compacted full-table rows) is the dense shade."""
     hw = (48, 64)
     calib = tcalib.load_calib().at_resolution(hw).to(cuda)
     rng = np.random.default_rng(7)
@@ -173,5 +193,5 @@ def test_compact_shade_equals_dense_shade_on_the_card(cuda):
     before = tlut.lut_shade.launches
     dense = toptical.shade(calib, grad_mag, grad_dir)
     compact = toptical.shade(calib, grad_mag, grad_dir, compact_capacity=hw[0] * hw[1])
-    assert tlut.lut_shade.launches == before + 2
+    assert tlut.lut_shade.launches == before + 3
     torch.testing.assert_close(compact, dense, atol=1e-5, rtol=0)

@@ -96,6 +96,14 @@ SHELL_MODULES = [
     "tacex_tpu_torch.physics.soft.msh_io",
 ]
 SLICE_MODULES += SHELL_MODULES
+# env-axis data parallelism
+PARALLEL_MODULES = [
+    "tacex_tpu_torch.parallel.group",
+    "tacex_tpu_torch.parallel.mesh",
+    "tacex_tpu_torch.parallel.dryrun",
+    "tacex_tpu_torch.parallel",
+]
+SLICE_MODULES += PARALLEL_MODULES
 # the UIPC examples and the CCD envelope script, with the arguments of a short run
 UIPC_SCRIPTS = {
     "examples/libuipc_samples/hello_uipc_torch.py": ["--steps", "1"],
@@ -369,6 +377,19 @@ def test_coupled_scripts_run_with_jax_blocked():
     out = _python(code)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_parallel_dryrun_runs_with_jax_blocked_in_every_rank(tmp_path):
+    """``python -m tacex_tpu_torch.parallel.dryrun --nproc 2 --device cpu``
+    exits 0 with importing jax and the JAX package made to raise in the
+    launcher and in both spawned ranks (a ``sitecustomize`` on
+    ``PYTHONPATH`` installs the blocker in every interpreter)."""
+    (tmp_path / "sitecustomize.py").write_text(BLOCKER)
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": os.pathsep.join([str(tmp_path), str(REPO)])}
+    out = subprocess.run([sys.executable, "-m", "tacex_tpu_torch.parallel.dryrun", "--nproc", "2", "--device", "cpu"],
+                         cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("dryrun OK on 2 ranks (gloo, cpu): full PPO train step ran"), out.stdout
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
