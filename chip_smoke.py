@@ -63,7 +63,8 @@ package beside this file; it imports nothing of JAX. In order it:
      ``shade(interp="bilinear")`` and ``render(compact_capacity=16384)`` on
      the card to the same calls on the CPU, times each, checks the compact
      call launched the shading kernel twice (the halo, the contact rows),
-     that the pyramid wrapper refuses a CUDA input that requires grad;
+     that the shading kernel's wrapper refuses a CUDA input that requires
+     grad (the pyramid's has a backward kernel: phase 23);
      ``render(lut_dtype=bfloat16)`` on the card against the CPU under the
      bin rule, the compact render with the bf16 table (K2's bf16 entry on
      the contact rows, counted and held to its plain version), and
@@ -77,7 +78,7 @@ package beside this file; it imports nothing of JAX. In order it:
      PegInsert step on the card to the CPU from the same state
      (``tests/test_torch_factory.py``'s tolerances);
  12. trains PPO one iteration on PegInsert at 128 envs under its tuned
-     config (4 epochs x 32 minibatches), cut to 32 rollout steps, on
+     config (4 epochs x 32 minibatches), cut to 16 rollout steps, on
      the (32, 32, 6) finger images, with the rollout/update split;
  13. resets and steps pole balancing at 1024 envs under sync-debug "error";
  14. trains SAC on the privileged task at 512 envs under the config of
@@ -102,7 +103,7 @@ package beside this file; it imports nothing of JAX. In order it:
      plain version and timed ("pyramid global 480x640");
  17. the coupled FEM+ABD world: ``TacEx-Grasp-Lift-Uipc-Tactile-v0`` at its
      registered 16 envs from a pressed start (each pad 0.6 mm toward the
-     cube): a warm step, 2 steps under sync-debug "error" with K1 and K2
+     cube): a warm step, 1 step under sync-debug "error" with K1 and K2
      launched once a step on the 2N = 32 pad images of 32x32; prints ms a
      step, torch.profiler's device activities and device time of one more
      step, one coupled solve alone and peak memory; holds K1 (warp design,
@@ -122,7 +123,7 @@ package beside this file; it imports nothing of JAX. In order it:
      ``follow_goal_torch`` at its 150 steps (K1 and K2 once a step on one
      240x320 image); ``pick_up_rigid_torch`` at its 4 x 120 steps (the ball
      must rise 5 cm); ``check_mani_skill_marker_torch`` at its 8 steps (no
-     kernel; the markers must move); ``pick_up_uipc_torch`` cut to 4 x 5
+     kernel; the markers must move); ``pick_up_uipc_torch`` cut to 4 x 3
      steps (finite); ``train_torch.py`` -> ``play_torch.py`` on the flagship
      at 512 envs (2 iterations with the dashboard, 20 played steps with
      ``--save_frames``; the played first action is the trained net's to
@@ -132,7 +133,7 @@ package beside this file; it imports nothing of JAX. In order it:
      frames (the follow-goal and pick-up demos' shapes);
  19. the UIPC scene API, which launches neither kernel: the six
      example scripts through ``main(argv)`` at their own envs and meshes,
-     cut to 2 steps (``floating_cube`` ends with
+     cut to 2 steps (``grasp_lift`` to 1; ``floating_cube`` ends with
      ``check_health``), with ms a step and finite positions; the union of
      two ``TetMeshCfg()`` gel pads (396 vertices each) with self and
      edge-edge contact at K = 4 at 16 envs, the top pad driven down onto
@@ -147,9 +148,9 @@ package beside this file; it imports nothing of JAX. In order it:
      (caught) and 1.6 m/s (tunnels) at dt 1/60;
  20. the standalone ABD solve, which launches neither kernel: the
      8-cube pile of ``benchmark_abd_pile_torch`` at 64 envs with the dense
-     Newton solve and with CG, each a warm step and 4 steps, the first
+     Newton solve and with CG, each a warm step and 3 steps, the first
      profiled (torch.profiler's device activities and busy share), the last
-     3 timed under sync-debug "error" (ms a step), with peak memory and the
+     2 timed under sync-debug "error" (ms a step), with peak memory and the
      broad-phase counts; envs 0-1 of the stepped pile taken one more step
      on the card and on the CPU at the parity tests' 2 Newton x 6
      line-search (x 3 CG) iterations (atol 1e-5 dense, 1e-4 CG), and the
@@ -169,8 +170,8 @@ package beside this file; it imports nothing of JAX. In order it:
      CG x 4 line-search iterations (within 1e-5 m, or 4x the CPU step's own
      response to a 1e-7 m jolt where that is larger); ``cloth_trampoline_torch``
      (cloth and a free cube in the coupled world) and ``bunny_cloth_torch``
-     (a standalone cloth over a kinematic body) at 2 steps each; and a lone
-     20 x 20 cloth with self contact through the union at 16 envs, 2 steps,
+     (a standalone cloth over a kinematic body) at 1 step each; and a lone
+     20 x 20 cloth with self contact through the union at 16 envs, 1 step,
      with its broad-phase counts;
  22. (after step 8) env-axis data parallelism: a 1-rank NCCL group in this
      process (127.0.0.1, a free port; NCCL refuses two ranks on one card)
@@ -182,14 +183,28 @@ package beside this file; it imports nothing of JAX. In order it:
      spread of two plain gradients where that is larger), and the whole
      iteration to the plain PPO's from the same state and the same
      permutations, in the parameters and the loss, within twice the spread
-     of two plain iterations from that state (equal where that is 0);
+     of two plain iterations from that state (equal where that is 0, as it
+     is under cuDNN's deterministic algorithms, which the phase selects);
      prints the iteration's seconds beside the plain one's, and the count
      and device time (CUDA events) of its all-reduces; 3
      flagship steps with the curriculum's all-reduce under sync-debug
      "error"; one sharded SAC train step on the privileged task at 512
      envs; and ``torchrun --nproc_per_node 1 scripts/train_torch.py
      --shard`` (2 iterations at 256 envs) as a subprocess, which must exit
-     0 with one JSON line an iteration.
+     0 with one JSON line an iteration;
+ 23. (last, after the shells) gradients: ``render(interp="bilinear")``'s
+     height-map gradient at (4096, 24, 32), (256, 240, 320) and (4, 480,
+     640), each launching K1 and its backward kernel once (counted), then
+     the backward kernel held to ``deformation_pyramid_backward_plain``
+     (max |err| within 1e-5 of max |plain|) and timed at those shapes; the
+     gradient at 16 x 240 x 320 on the card under sync-debug "error",
+     against the CPU's (relative 1e-3 in norm; the loss weighs a ring of
+     each press off the LUT's bin edges); the UIPC gel at its registered
+     16 envs, pressed, then one ``SoftBodyModel.step`` forward and backward
+     under sync-debug "error", with its device activities, device ms
+     (torch.profiler), host ms and peak memory beside the no-grad step's;
+     and its gradient in (x, aim, ball) on 2 envs against the CPU's at 3
+     Newton x 3 CG (relative 1e-2).
 
 Each phase prints its seconds. The second-to-last line is a JSON object with a row per kernel and shape:
 its launches on the main path that runs it at that shape, its error against
@@ -227,7 +242,7 @@ FACTORY_IDS = (
     "TacEx-Factory-NutThread-Direct-v0",
 )
 FACTORY_STEPS = 5
-FACTORY_TRAIN_ROLLOUTS = 32
+FACTORY_TRAIN_ROLLOUTS = 16  # the tuned 128 cut, so that the whole run stays under 900 s
 POLE_ID = "TacEx-Pole-Balancing-Base-v0"
 POLE_STEPS = 5
 SAC_PRIVILEGED_ENVS = 512  # logs/sac_privileged_r05/config.json
@@ -250,7 +265,7 @@ COUPLED_PRESS = 6e-4
 # the card-against-CPU check's iterations: the parity tests' (tests/_torch_coupled.py)
 REF_NEWTON_ITERS = 2
 REF_CG_ITERS = 8
-COUPLED_STEPS = 2  # few: a step takes 12-20 s, and the whole run stays under 900 s
+COUPLED_STEPS = 1  # few: a step takes 12-22 s, and the whole run stays under 900 s
 COUPLED_OTHER_STEPS = 1
 SQUEEZE_STEPS = 2  # as COUPLED_STEPS
 CALIB_ENVS = 4
@@ -261,7 +276,7 @@ FOLLOW_GOAL_MAX_ERROR = 2e-4  # m, the mean after step 10 (the CPU test's 0.2 mm
 PICK_UP_RIGID_STEPS = 120  # a phase, 4 phases
 PICK_UP_RIGID_MIN_LIFT = 0.05
 MANI_SKILL_STEPS = 8
-PICK_UP_UIPC_STEPS = 5  # a phase (the demo's default is 100)
+PICK_UP_UIPC_STEPS = 3  # a phase (the demo's default is 100)
 PLAY_ENVS = 512
 PLAY_ITERATIONS = 2
 PLAY_STEPS = 20
@@ -279,11 +294,11 @@ UIPC_EXAMPLES = {  # script -> steps in the phase (the scripts' own: 90, 150, 12
     "examples/libuipc_samples/periodically_pressed_tetrahedron_torch.py": 2,
     "examples/falling_gel_cubes_torch.py": 2,
     "examples/single_uipc_attachment_torch.py": 2,
-    "examples/grasp_lift_torch.py": 2,
+    "examples/grasp_lift_torch.py": 1,
 }
 STEP_N_STEPS = 4
 ABD_ENVS = 64  # scripts/benchmarking/benchmark_abd_pile.py's default
-ABD_STEPS = 4  # the first profiled
+ABD_STEPS = 3  # the first profiled
 ABD_REF_CFG = dict(newton_max_iter=2, line_search_iters=6, cg_iters=3)  # tests/_torch_abd.py's iterations
 ABD_REF_ATOL = {"dense": 1e-5, "cg": 1e-4}  # tests/test_torch_abd_step.py
 ABD_SAMPLE_STEPS = 2
@@ -292,9 +307,9 @@ SHELL_STEPS = 4  # under sync-debug "error" after a warm step: the first profile
 SHELL_SOUP_GAP = 1.5e-3  # m: the cloth over the soup's top vertex, inside d_hat (2 mm)
 SHELL_REF_CFG = dict(newton_max_iter=2, cg_iters=6, line_search_iters=4, velocity_tol=0.0)  # tests/_torch_shell.py
 SHELL_REF_ATOL = 1e-5  # m, or 4x the CPU step's response to a 1e-7 m jolt where that is larger
-SHELL_SCENE_STEPS = 2
+SHELL_SCENE_STEPS = 1
 SHELL_UNION_ENVS = 16
-SHELL_UNION_STEPS = 2
+SHELL_UNION_STEPS = 1
 PARALLEL_SAC_ENVS = 512  # the sac phase's privileged width
 PARALLEL_CURRICULUM_STEPS = 3
 PARALLEL_TORCHRUN_ENVS = 256
@@ -306,20 +321,38 @@ PARALLEL_TORCHRUN_ITERATIONS = 2
 # difference of the loss and the KL. The two run the same arithmetic, so
 # they may differ only by kernels that are not deterministic: the bound is
 # the larger of PARALLEL_GRAD_RTOL and PARALLEL_SPREAD_FACTOR times the
-# spread of two plain gradients of the same rows (0 on one H100, 1.03e-6
-# on another: cuDNN's choice of convolution algorithms).
+# spread of two plain gradients of the same rows (0 under the
+# deterministic cuDNN algorithms the phase selects; up to 1.4e-6 with the
+# default ones).
 PARALLEL_GRAD_RTOL = 1e-6
 # The whole 1-rank iteration against the plain PPO's from the same state
 # and permutations, in the parameters and the loss: within this factor of
 # the spread of two plain iterations from that state (the card's
-# run-to-run noise; 0 where its kernels are deterministic, and then the
-# two must be equal).
+# run-to-run noise: 0 under the phase's deterministic cuDNN algorithms, and
+# then the two must be equal).
 PARALLEL_SPREAD_FACTOR = 2.0
 ROLLOUT_STEPS = 5
 ROLLOUT_CPU_ENVS = 16  # the rollout's first envs, held to the CPU
 WARMUP_STEPS = 2
 STEPS = 10
 KERNEL_ATOL = 1e-5
+# K1's backward against its plain adjoint: max |err| within this share of
+# max |plain| (the two sum the taps in another order)
+BACKWARD_RTOL = 1e-5
+# the shapes of K1's backward: the flagship's, the sensor's, the calibration frame's
+GRAD_KERNEL_SHAPES = ((4096, 24, 32), (256, 240, 320), (4, 480, 640))
+GRAD_RENDER_ENVS = 16  # render's height-map gradient at 320x240, card against CPU
+# ||g_card - g_cpu|| / ||g_cpu|| of render's height-map gradient: the loss
+# weighs a ring of the press where the slope is well above float noise (the
+# direction's derivative is 1 / |slope| times the noise elsewhere)
+GRAD_RENDER_RTOL = 1e-3
+GRAD_GEL_PRESS_STEPS = 7  # the UIPC press steps before the gradient step: the gel within d_hat of the ball
+# The gel's one-step gradient, card against CPU on 2 envs, at 3 Newton x 3
+# CG: at the registered 4 x 16 the unrolled gradient moves by ~100% of its
+# norm under a 1e-9 m jolt of x (CG's later iterations run on rounding
+# noise; on the CPU and in JAX alike), at 3 x 3 by 5e-4
+GRAD_GEL_REF_CFG = dict(newton_max_iter=3, cg_iters=3)
+GRAD_GEL_RTOL = 1e-2
 # NVIDIA H100 SXM data sheet: device memory rate and FP32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -568,6 +601,7 @@ def _counters():
 def _reset_counters() -> None:
     for fn in _counters():
         fn.launches = 0
+    _counters()[0].backward_launches = 0
     _counters()[1].bf16_launches = 0
 
 
@@ -1098,6 +1132,14 @@ def parallel_phase(device) -> dict:
     print(f"parallel: torch.distributed {'has' if nccl else 'lacks'} NCCL")
     if not nccl:
         raise AssertionError("torch.distributed has no NCCL backend")
+    # cuDNN's default convolution algorithms sum in an order that changes
+    # from run to run: two plain iterations from one state parted by 4e-7 to
+    # 5e-5 in the loss, a one-pair spread too noisy to bound the sharded
+    # one by. With its deterministic algorithms the sharded and the plain
+    # PPO, one arithmetic, are equal to the bit (measured on the card), so
+    # the bounds below hold them to equality.
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
     group = init_env_parallel(NUM_ENVS, device, init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0, world_size=1)
     spans, all_reduce = [], dist.all_reduce
 
@@ -1217,6 +1259,7 @@ def parallel_phase(device) -> dict:
     finally:
         dist.all_reduce = all_reduce
         close_env_parallel()
+        torch.backends.cudnn.deterministic = deterministic
 
     # the launcher a user runs, in its own process (the kernels' library is built)
     torch.cuda.empty_cache()
@@ -1306,7 +1349,7 @@ def shading_phase(device) -> dict:
     """The shadow, bilinear and compact shading paths at 320x240 on 16 pressed
     envs, the card against the CPU from the same height maps."""
     from _torch_bins import assert_bin_rule, lut_spread
-    from tacex_tpu_torch.ops import pyramid as K1
+    from tacex_tpu_torch.ops import lut_shade as K2
     from tacex_tpu_torch.sensors.gelsight.sensor import GelSightSensor
     from tacex_tpu_torch.sensors.gelsight.sensor_cfg import gelsight_mini_cfg
     from tacex_tpu_torch.sensors.gelsight.taxim import optical
@@ -1419,14 +1462,15 @@ def shading_phase(device) -> dict:
     print(f"shading: render(orig_hm_fmt=True) at 320x240 on {n} envs cuda vs cpu: {held_o:.4f} of pixels held to "
           "1e-4 under the bin rule; equal to the render of gel_map_shift - (gel_map_shift - hm)")
 
-    joined = torch.zeros((1, 24, 32), device=device, requires_grad=True)
+    # K1 differentiates on the card (the grad phase holds its backward kernel); K2 has no backward kernel
+    feats = torch.zeros((6, 8), device=device, requires_grad=True)
     try:
-        K1.deformation_pyramid(joined, torch.zeros((1, 24, 32), dtype=torch.bool, device=device), sensor_sigmas((24, 32)))
+        K2.lut_shade(torch.zeros((1, 8), dtype=torch.int32, device=device), feats, torch.zeros((5, 18), device=device))
     except RuntimeError as err:
         if "no backward kernel" not in str(err):
             raise
     else:
-        raise AssertionError("deformation_pyramid took a CUDA input that requires grad")
+        raise AssertionError("lut_shade took a CUDA input that requires grad")
     return dict(shadow_ms=shadow_ms, dense_ms=dense_ms, bilinear_ms=bil_ms, compact_ms=comp_ms,
                 compact_launches=compact_launches, compact_bf16=compact_bf16, kernels=compact_entry)
 
@@ -2833,6 +2877,234 @@ def _shell_union_run(device) -> dict:
     return dict(envs=SHELL_UNION_ENVS, steps=SHELL_UNION_STEPS, step_ms=step_ms, overflow=overflow)
 
 
+def _grad_height_maps(n: int, hw, device):
+    """(n, h, w) height maps (mm, 0 = gel top) of a 4 mm sphere pressed
+    0.6-1.0 mm into the gel, its centre moved per env, and the ring weights
+    of render's loss: 1 where a pixel lies 0.4-1.2 contact radii from its
+    press's centre."""
+    h, w = hw
+    pixmm = 0.0295 * 640 / w
+    i = torch.arange(n, device=device, dtype=torch.float32)
+    # centres off the pixel grid: on a press's axis of symmetry the slope's
+    # direction sits exactly on a LUT bin edge, where the bilinear shade's
+    # derivative jumps and float noise picks the side
+    cy = h / 2.0 + (i % 7 - 3.0) * h / 48.0 + 0.31
+    cx = w / 2.0 + (torch.div(i, 7, rounding_mode="floor") % 7 - 3.0) * w / 64.0 + 0.37
+    yy = torch.arange(h, device=device, dtype=torch.float32)[None, :, None]
+    xx = torch.arange(w, device=device, dtype=torch.float32)[None, None, :]
+    r = torch.sqrt((yy - cy[:, None, None]) ** 2 + (xx - cx[:, None, None]) ** 2) * pixmm
+    radius = 4.0
+    z = torch.where(r < radius, radius - torch.sqrt(torch.clamp(radius * radius - r * r, min=0.0)), radius)
+    press = 0.6 + 0.1 * (i % 5)
+    contact = torch.sqrt(2.0 * radius * press - press * press)[:, None, None]
+    ring = ((r > 0.4 * contact) & (r < 1.2 * contact)).to(torch.float32)
+    return z - press[:, None, None], ring
+
+
+def _render_weights(calib, hm, ring):
+    """The weights of render's loss: the ring, less the pixels whose slope
+    lies within EDGE_BINS of a LUT bin edge (there the bilinear shade's
+    derivative jumps, and the card's and the CPU's float noise may take
+    either side), times a fixed weight a channel."""
+    from tacex_tpu_torch.sensors.gelsight.taxim import optical
+
+    with torch.no_grad():
+        deformed, _ = optical.compute_gel_deformation(calib, hm)
+        grad_mag, grad_dir = optical.generate_normals(calib, -deformed / calib.sensor_params.pixmm)
+    nb = calib.sensor_params.num_bins
+    t_mag, t_dir = grad_mag / (0.5 * np.pi / (nb - 1)), (grad_dir + np.pi) / (2.0 * np.pi / (nb - 1))
+    edge = torch.minimum((t_mag - torch.round(t_mag)).abs(), (t_dir - torch.round(t_dir)).abs())
+    return (ring * (edge > EDGE_BINS))[..., None] * torch.tensor([0.7, 1.0, 1.3], device=ring.device)
+
+
+def _render_grad(calib, hm, weights):
+    """render(interp="bilinear")'s gradient in the height map of the loss
+    sum(weights x image)."""
+    from tacex_tpu_torch.sensors.gelsight.taxim import optical
+
+    hm = hm.detach().requires_grad_(True)
+    (g,) = torch.autograd.grad((weights * optical.render(calib, hm, interp="bilinear")).sum(), hm)
+    return g
+
+
+def _pyramid_backward_entry(label, grad_out, mask, sigmas) -> dict:
+    """K1's backward held to its plain adjoint (relative BACKWARD_RTOL) and
+    timed; its bound is the forward's: the same taps, or the cotangent, the
+    mask and the gradient once each."""
+    from tacex_tpu_torch.ops import pyramid as K1
+
+    out = K1.deformation_pyramid_backward(grad_out, mask, sigmas)
+    ref = K1.deformation_pyramid_backward_plain(grad_out, mask, sigmas)
+    torch.cuda.synchronize()
+    err, scale = float((out - ref).abs().max()), float(ref.abs().max())
+    print(f"kernel deformation_pyramid_backward[{label}]: max_abs_err {err:.3e} of max |plain| {scale:.3e} "
+          f"(rtol {BACKWARD_RTOL})")
+    if not (bool(torch.isfinite(out).all()) and err <= BACKWARD_RTOL * scale and scale > 0):
+        raise AssertionError(f"deformation_pyramid_backward[{label}] disagrees with its plain adjoint: {err} of {scale}")
+    return dict(shape=list(grad_out.shape), design="global", max_abs_err=err,
+                **_timing(lambda: K1.deformation_pyramid_backward(grad_out, mask, sigmas),
+                          lambda: K1.deformation_pyramid_backward_plain(grad_out, mask, sigmas),
+                          pyramid_bound(grad_out.shape, sigmas)))
+
+
+def _gel_grad_inputs(env, steps: int):
+    """The UIPC env pressed ``steps`` steps from its reset -> the gel's
+    (model, state, scene, aim) of the next solve."""
+    from tacex_tpu_torch.core import maths
+
+    action = _uipc_action(env.cfg.num_envs, env.device)
+    state, _ = env.reset_all(env.init_state())
+    for _ in range(steps):
+        state, *_ = env.step(state, action)
+    tool_pos, tool_quat = env._tool_pose(state.base.arm.q)
+    aim = maths.transform_points(env._gel_top_rest, tool_pos, tool_quat)
+    return env.gel, state.gel, env._scene(state.base.ball_pos, env._planes), aim
+
+
+def _gel_grad(model, state, scene, aim, weights):
+    """One differentiable gel step -> the gradient of sum(weights x
+    displacement) in (x, aim, the spheres)."""
+    from tacex_tpu_torch.physics.soft import ipc
+
+    x = state.x.detach().clone().requires_grad_(True)
+    a = aim.detach().clone().requires_grad_(True)
+    sph = scene.spheres.detach().clone().requires_grad_(True)
+    out = model.step(ipc.SoftBodyState(x=x, v=state.v), dataclasses.replace(scene, spheres=sph), a)
+    return torch.autograd.grad((weights * (out.x - x)).sum(), (x, a, sph))
+
+
+def _timed_peak(fn) -> tuple[float, float]:
+    """(host ms, peak GB of device memory) of one synchronised call."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0), torch.cuda.max_memory_allocated() / 1e9
+
+
+def grad_phase(device) -> dict:
+    """Gradients on the card. K1's backward kernel at the flagship's, the
+    sensor's and the calibration frame's shapes: each launched once by
+    render's backward (counted), then held to its plain adjoint and timed;
+    render(interp="bilinear")'s height-map gradient at 320x240 on
+    GRAD_RENDER_ENVS envs against the CPU's; the UIPC gel's one-step
+    gradient at its registered 16 envs (forward and backward under
+    sync-debug "error", device ms, activities and peak memory beside the
+    no-grad step's), and on 2 envs against the CPU's."""
+    from tacex_tpu_torch import envs
+    from tacex_tpu_torch.ops import pyramid as K1
+    from tacex_tpu_torch.sensors.gelsight.taxim import calib as tcalib
+    from tacex_tpu_torch.sensors.gelsight.taxim import optical
+
+    out, kernels, launches = {}, {}, {}
+    full = tcalib.load_calib()
+    g = torch.Generator(device=device).manual_seed(0)
+    for n, h, w in GRAD_KERNEL_SHAPES:
+        calib = full.at_resolution((h, w)).to(device)
+        hm, ring = _grad_height_maps(n, (h, w), device)
+        if bool((hm == calib.gel_map).any()):
+            raise AssertionError("grad: a height equals the gel surface, where minimum's tie splits the gradient")
+        _reset_counters()
+        grad = _render_grad(calib, hm, ring[..., None].expand(n, h, w, 3))
+        torch.cuda.synchronize()
+        label = f"{n}x{h}x{w}"
+        launches[label] = {**_read_counters(), "deformation_pyramid_backward": K1.deformation_pyramid.backward_launches}
+        if launches[label] != {"deformation_pyramid": 1, "lut_shade": 0, "deformation_pyramid_backward": 1}:
+            raise AssertionError(f"grad: render's gradient at {label} launched {launches[label]}")
+        if not (bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0):
+            raise AssertionError(f"grad: render's height-map gradient at {label} is not finite or zero")
+        _, mask, sigmas = optical.deformation_inputs(calib, hm)
+        cot = torch.randn((n, h, w), generator=g, device=device)
+        kernels[f"pyramid backward {label}"] = _pyramid_backward_entry(label, cot, mask.contiguous(), sigmas)
+        del calib, hm, ring, grad, mask, cot
+    _print_entries(kernels)
+
+    # render's height-map gradient, card against CPU, with no host sync on the card
+    calib = full.at_resolution((240, 320))
+    hm, ring = _grad_height_maps(GRAD_RENDER_ENVS, (240, 320), "cpu")
+    weights = _render_weights(calib, hm, ring)
+    cal_g, hm_g, w_g = calib.to(device), hm.to(device), weights.to(device)
+    _render_grad(cal_g, hm_g, w_g)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g_card = _render_grad(cal_g, hm_g, w_g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    g_cpu = _render_grad(calib, hm, weights)
+    rel = float(torch.linalg.vector_norm(g_card.cpu() - g_cpu) / torch.linalg.vector_norm(g_cpu))
+    print(f"grad: render(interp='bilinear') height-map gradient at {GRAD_RENDER_ENVS}x240x320, cuda vs cpu: "
+          f"relative {rel:.3e} (limit {GRAD_RENDER_RTOL}), ||g|| {float(torch.linalg.vector_norm(g_cpu)):.4e}")
+    if not rel <= GRAD_RENDER_RTOL:
+        raise AssertionError(f"grad: the card's render gradient disagrees with the CPU's: {rel}")
+    out["render_320x240_rel"] = rel
+    out["render_320x240_grad_ms"] = _host_ms(lambda: _render_grad(cal_g, hm_g, w_g), iters=3)
+    del cal_g, hm_g, w_g, g_card
+
+    # the gel at its registered 16 envs: no-grad step, then forward and backward
+    env = envs.make(UIPC_IDS[0], device=device)
+    model, state, scene, aim = _gel_grad_inputs(env, GRAD_GEL_PRESS_STEPS)
+    n = env.cfg.num_envs
+    weights = torch.randn(state.x.shape, generator=g, device=device)
+
+    def plain_step():
+        with torch.no_grad():
+            return model.step(state, scene, aim)
+
+    def grad_step():
+        return _gel_grad(model, state, scene, aim, weights)
+
+    plain_step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grads = grad_step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(t).all()) for t in grads) or float(grads[2].abs().max()) <= 0:
+        raise AssertionError("grad: the gel's gradient is not finite, or the ball does not move the solve")
+    gel = {}
+    for tag, fn in (("no_grad", plain_step), ("grad", grad_step)):
+        activities, device_ms = _launch_count(fn)
+        host_ms, peak_gb = _timed_peak(fn)
+        gel[tag] = dict(activities=activities, device_ms=device_ms, host_ms=host_ms, peak_gb=peak_gb)
+        print(f"grad: gel step {tag} at {n} envs ({model.cfg.newton_max_iter} Newton x {model.cfg.cg_iters} CG): "
+              f"{gel[tag]['host_ms']:.1f} ms host clock, {activities} device activities taking "
+              f"{device_ms:.3f} ms of device time (torch.profiler), peak memory {gel[tag]['peak_gb']:.3f} GB")
+    out["gel_16"] = gel
+
+    # 2 envs, card against CPU, at GRAD_GEL_REF_CFG
+    cpu = envs.make(UIPC_IDS[0], num_envs=2, device="cpu").gel
+    registered = model.cfg
+    def two(x, dev="cpu"):
+        """The first 2 envs of a tensor or a dataclass of them, on ``dev``."""
+        if dataclasses.is_dataclass(x):
+            return type(x)(**{f.name: two(getattr(x, f.name), dev) for f in dataclasses.fields(x)})
+        return None if x is None else x[:2].detach().to(dev)
+
+    state_c, scene_c = two(state), two(scene)
+    cpu.cfg = cpu.cfg.replace(**GRAD_GEL_REF_CFG)
+    model.cfg = registered.replace(**GRAD_GEL_REF_CFG)
+    try:
+        g_card = _gel_grad(model, two(state, device), two(scene, device), aim[:2], weights[:2])
+    finally:
+        model.cfg = registered
+    g_cpu = _gel_grad(cpu, state_c, scene_c, two(aim), two(weights))
+    rels = {name: float(torch.linalg.vector_norm(a.cpu() - b) / torch.linalg.vector_norm(b))
+            for name, a, b in zip(("x", "aim", "spheres"), g_card, g_cpu)}
+    print(f"grad: gel one-step gradient, 2 envs at {GRAD_GEL_REF_CFG}, cuda vs cpu: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rels.items()) + f" (limit {GRAD_GEL_RTOL})")
+    if not all(v <= GRAD_GEL_RTOL for v in rels.values()):
+        raise AssertionError(f"grad: the card's gel gradient disagrees with the CPU's: {rels}")
+    out["gel_reference_rel"] = rels
+    out["launches"] = launches
+    out["kernels"] = kernels
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2899,16 +3171,20 @@ def main() -> None:
     uipc_api = phase("uipc_api", uipc_api_phase, device)
     abd = phase("abd", abd_phase, device)
     shell = phase("shell", shell_phase, device)
+    grad = phase("grad", grad_phase, device)
 
     kernels.update(shading.pop("kernels"))
     kernels.update(factory.pop("kernels"))
     kernels.update(uipc.pop("kernels"))
     kernels.update(coupled.pop("kernels"))
     kernels.update(tools.pop("kernels"))
+    kernels.update(grad.pop("kernels"))
     sources = {
         "deformation_pyramid": ("tacex_tpu_torch/csrc/pyramid.cu", "tacex_tpu/ops/pallas_pyramid.py:61"),
         "lut_shade": ("tacex_tpu_torch/csrc/lut_shade.cu", "tacex_tpu/ops/pallas_lut.py:63"),
         "lut_shade_bf16": ("tacex_tpu_torch/csrc/lut_shade.cu", "tacex_tpu/ops/pallas_lut.py:63"),
+        # the gradient of K1 (the TPU package has no backward kernel: XLA differentiates its plain blur)
+        "deformation_pyramid_backward": ("tacex_tpu_torch/csrc/pyramid.cu", "tacex_tpu/ops/pallas_pyramid.py:61"),
     }
     # (kernel, entry, the main path that runs it at that shape, its launches there)
     rows = (
@@ -2937,6 +3213,10 @@ def main() -> None:
         ("lut_shade_bf16", "lut bf16 full table 4096x768", "render_bf16_24x32_4096", bf16["render_bf16_24x32_4096"]),
         ("lut_shade_bf16", "lut bf16 full table 256x76800", "render_bf16_320x240_256", sensor["bf16_launches"]),
         ("lut_shade_bf16", "lut bf16 compact contact rows", "compact_render_bf16_320x240_16", shading["compact_bf16"]),
+    ) + tuple(
+        ("deformation_pyramid_backward", f"pyramid backward {n}x{h}x{w}", f"render_grad_{n}x{h}x{w}",
+         grad["launches"][f"{n}x{h}x{w}"])
+        for n, h, w in GRAD_KERNEL_SHAPES
     )
     report = {
         "kernels": [
@@ -2968,6 +3248,7 @@ def main() -> None:
         "uipc_api": uipc_api,
         "abd": abd,
         "shell": shell,
+        "grad": {k: v for k, v in grad.items() if k != "launches"},
         "phase_seconds": seconds,
     }
     print(json.dumps(report))

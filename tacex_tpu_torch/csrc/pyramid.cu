@@ -65,6 +65,11 @@
 //    and is far from either bound (PERF.md has its time). The caller gives
 //    the scratch image (tacex_deformation_pyramid_global).
 //
+// The backward (tacex_deformation_pyramid_backward) is the explicit adjoint
+// of the same computation, for the gradient in `joined`; the TPU package has
+// no backward kernel (XLA differentiates its plain blur), so it replaces
+// none. See section 4 below.
+//
 // No fast-math: sums stay in f32 in tap order.
 
 #include <cooperative_groups.h>
@@ -578,6 +583,90 @@ pyramid_wpass_kernel(const float* __restrict__ src, const float* __restrict__ jo
   dst[i] = acc;
 }
 
+// ----------------------------------------------------- 4. backward (adjoint)
+// With B_l the blur of level l (H pass, then W pass), the forward is
+//   x_0 = joined; y_l = B_l(x_l); x_{l+1} = mask ? joined : y_l; out = y_{L-1}.
+// Its adjoint for a cotangent g of `out` runs the levels from the last down:
+//   gx_l = B_l^T(g) (the W pass's transpose, then the H pass's);
+//   l >= 1: d_joined += mask ? gx_l : 0 and g = mask ? 0 : gx_l;
+//   l = 0:  d_joined += gx_0.
+// A pass's transpose is not the pass itself within (K - 1) / 2 pixels of an
+// edge, where the single reflection folds taps back: the forward's output i
+// reads input reflect(i + k - P), so input j gathers taps[k] * g[i] over
+// every (i, k) with reflect(i + k - P) = j, i.e. i + k - P = j, = -j (j >= 1)
+// or = 2 (n - 1) - j (j <= n - 2), with 0 <= i < n.
+//
+// Design: one global-memory buffer holds both sums, since they live on
+// different pixels: d_joined on the pinned ones, the gradient passed down on
+// the others (read as 0 where pinned). Per level one W-transpose kernel into
+// a scratch image and one H-transpose kernel that writes gx, adding the
+// pixel's d_joined where pinned: two launches a level, one thread an output
+// pixel, taps read through L1/L2 as in design 3. Levels whose two passes
+// have one tap each are the identity; they are skipped (a skipped last level
+// starts the buffer as a copy of the cotangent). What bounds it: the same
+// taps as the forward (operations at 240x320), or the cotangent, the mask and
+// the gradient once each (bytes at 24x32); this simple design reads every tap
+// from cache and is far from either (PERF.md has its time).
+
+// sum over the (i, k) above of taps[k] * load(i), for output j of n
+template <typename Load>
+__device__ __forceinline__ float adjoint_taps(const Load& load, int j, int n, const float* t, int K) {
+  const int P = (K - 1) / 2;
+  float acc = 0.0f;
+  for (int k = max(0, j + P - (n - 1)); k <= min(K - 1, j + P); ++k) acc += t[k] * load(j - k + P);
+  if (j >= 1)
+    for (int k = 0; k <= P - j; ++k) acc += t[k] * load(P - j - k);
+  if (j <= n - 2)
+    for (int k = max(0, n - 1 - j + P); k < K; ++k) acc += t[k] * load(2 * (n - 1) - j - k + P);
+  return acc;
+}
+
+// a row of the incoming gradient; pinned pixels read as 0 when `masked`
+struct RowLoad {
+  const float* row;
+  const uint8_t* mrow;
+  int masked;
+  __device__ __forceinline__ float operator()(int c) const {
+    return masked && __ldg(mrow + c) ? 0.0f : __ldg(row + c);
+  }
+};
+
+// a column of the scratch image
+struct ColLoad {
+  const float* col;
+  int w;
+  __device__ __forceinline__ float operator()(int r) const { return __ldg(col + static_cast<long long>(r) * w); }
+};
+
+// dst[img, r, c] = the W pass's transpose of src at (img, r, c)
+__global__ void __launch_bounds__(kGlobalThreads)
+pyramid_wpass_adjoint_kernel(const float* __restrict__ src, const uint8_t* __restrict__ mask,
+                             float* __restrict__ dst, long long total, int w, int kx, int off, int masked,
+                             const __grid_constant__ PyramidTaps p) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int c = static_cast<int>(i % w);
+  const RowLoad load{src + (i - c), mask + (i - c), masked};
+  dst[i] = adjoint_taps(load, c, w, p.taps + off, kx);
+}
+
+// gx = the H pass's transpose of src at (img, r, c); dst = gx, plus dst's
+// d_joined at a pinned pixel when `accumulate`
+__global__ void __launch_bounds__(kGlobalThreads)
+pyramid_hpass_adjoint_kernel(const float* __restrict__ src, const uint8_t* __restrict__ mask, float* dst,
+                             long long total, int h, int w, int ky, int off, int accumulate,
+                             const __grid_constant__ PyramidTaps p) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int c = static_cast<int>(i % w);
+  const long long row = i / w;  // img * h + r
+  const int r = static_cast<int>(row % h);
+  const ColLoad load{src + (row - r) * w + c, w};
+  float acc = adjoint_taps(load, r, h, p.taps + off, ky);
+  if (accumulate && __ldg(mask + i)) acc += dst[i];
+  dst[i] = acc;
+}
+
 // A row pitch of at least n floats that is 4 more than a multiple of 32.
 constexpr int skew_pitch(int n) { return n + ((4 - n % 32) + 32) % 32; }
 
@@ -761,5 +850,49 @@ extern "C" int tacex_deformation_pyramid(const float* joined, const uint8_t* mas
   const cudaLaunchConfig_t cfg = cluster_config(c, n, s, attr);
   err = cudaLaunchKernelEx(&cfg, pyramid_cluster_kernel, joined, mask, out, h, w, c);
   if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The gradient in `joined` of the pyramid for the cotangent `grad_out` of its
+// output (section 4), into `grad_joined`, with `scratch` (n x h x w floats)
+// between a level's two passes. Returns the CUDA error of the launches
+// (0 = cudaSuccess); launches on `stream` and does not synchronise.
+extern "C" int tacex_deformation_pyramid_backward(const float* grad_out, const uint8_t* mask, float* grad_joined,
+                                                  float* scratch, const float* taps, const int* ky, const int* kx,
+                                                  int levels, int n, int h, int w, void* stream) {
+  if (n < 0 || !valid_taps(h, w, ky, kx, levels)) return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  PyramidTaps p;
+  p.levels = levels;
+  int off[kMaxLevels];
+  int total_taps = 0;
+  for (int l = 0; l < levels; ++l) {
+    p.ky[l] = ky[l];
+    p.kx[l] = kx[l];
+    off[l] = total_taps;
+    total_taps += ky[l] + kx[l];
+  }
+  for (int i = 0; i < total_taps; ++i) p.taps[i] = taps[i];
+  const long long total = static_cast<long long>(n) * h * w;
+  const long long blocks = (total + kGlobalThreads - 1) / kGlobalThreads;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  bool first = true;  // grad_joined holds nothing yet: read grad_out, unmasked
+  for (int l = levels - 1; l >= 0; --l) {
+    if (ky[l] == 1 && kx[l] == 1) {
+      if (l == levels - 1) {
+        const cudaError_t err =
+            cudaMemcpyAsync(grad_joined, grad_out, total * sizeof(float), cudaMemcpyDeviceToDevice, s);
+        if (err != cudaSuccess) return err;
+        first = false;
+      }
+      continue;
+    }
+    pyramid_wpass_adjoint_kernel<<<static_cast<unsigned>(blocks), kGlobalThreads, 0, s>>>(
+        first ? grad_out : grad_joined, mask, scratch, total, w, kx[l], off[l] + ky[l], first ? 0 : 1, p);
+    pyramid_hpass_adjoint_kernel<<<static_cast<unsigned>(blocks), kGlobalThreads, 0, s>>>(
+        scratch, mask, grad_joined, total, h, w, ky[l], off[l], first ? 0 : 1, p);
+    first = false;
+  }
   return cudaGetLastError();
 }

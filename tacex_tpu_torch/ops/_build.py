@@ -112,6 +112,8 @@ def load_library() -> ctypes.CDLL:
     lib.tacex_deformation_pyramid.restype = i32
     lib.tacex_deformation_pyramid_global.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     lib.tacex_deformation_pyramid_global.restype = i32
+    lib.tacex_deformation_pyramid_backward.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+    lib.tacex_deformation_pyramid_backward.restype = i32
     lib.tacex_deformation_pyramid_plan.argtypes = [i32, i32, ptr, ptr, ptr, i32]
     lib.tacex_deformation_pyramid_plan.restype = i32
     lib.tacex_lut_shade.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]

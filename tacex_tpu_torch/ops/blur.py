@@ -3,7 +3,8 @@
 Port of ``tacex_tpu/ops/blur.py``. The kernel sizes, tap weights and
 reflect-padded band matrices are computed in numpy exactly as the JAX
 package computes them, so both packages blur with the same operators.
-``gaussian_blur`` is the plain version (two band-matrix products);
+``gaussian_blur`` is the plain version (two band-matrix products),
+``gaussian_blur_transpose`` its adjoint (the transposed products);
 ``gaussian_taps`` hands the same taps and reflect rule to the hand-written
 deformation-pyramid kernel (``ops/pyramid.py``). ``box_dilate`` grows a
 binary mask by a box (the shadow pass's attachment ring).
@@ -78,6 +79,20 @@ def _blur_along(img: torch.Tensor, sigma: float, ksize: int, axis: int) -> torch
     if axis == 1:
         return torch.matmul(m, img)
     return torch.matmul(img, m.T)
+
+
+def gaussian_blur_transpose(img: torch.Tensor, sigma_xy: tuple[float, float]) -> torch.Tensor:
+    """The adjoint of ``gaussian_blur`` on (B, H, W) images: the transposed
+    band matrices, W pass first. At the borders the folded-in reflection
+    makes it differ from the blur itself."""
+    sx, sy = float(sigma_xy[0]), float(sigma_xy[1])
+    kx, ky = kernel_size_for_sigma(sx), kernel_size_for_sigma(sy)
+    x = img
+    if kx > 1:
+        x = torch.matmul(x, torch.from_numpy(_band_matrix(x.shape[2], sx, kx)).to(x.device))
+    if ky > 1:
+        x = torch.matmul(torch.from_numpy(_band_matrix(x.shape[1], sy, ky)).to(x.device).T, x)
+    return x
 
 
 def gaussian_blur(

@@ -712,7 +712,7 @@ class AbdModel:
         needs_grad = any(t is not None and t.requires_grad for t in inputs) or scene.requires_grad()
         if torch.is_grad_enabled() and needs_grad:
             raise RuntimeError(
-                "AbdModel.step has no gradient in its inputs yet (ROADMAP Queue 1 item 3b); "
+                "AbdModel.step has no gradient in its inputs yet (ROADMAP Queue 1 item 3c); "
                 "detach them or run under torch.no_grad()"
             )
         n, B = state.q.shape[:2]

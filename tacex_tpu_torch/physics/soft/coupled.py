@@ -397,7 +397,7 @@ class CoupledModel:
         inputs = (fem_state.x, fem_state.v, abd_state.q, abd_state.qd, aim_pos, aim_q, aim_strength)
         if torch.is_grad_enabled() and (any(t is not None and t.requires_grad for t in inputs) or scene.requires_grad()):
             raise RuntimeError(
-                "CoupledModel.step has no gradient in its inputs yet (ROADMAP Queue 1 item 3b); "
+                "CoupledModel.step has no gradient in its inputs yet (ROADMAP Queue 1 item 3c); "
                 "detach them or run under torch.no_grad()"
             )
         n = fem_state.x.shape[0]

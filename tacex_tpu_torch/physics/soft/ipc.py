@@ -22,10 +22,15 @@ Hessian-vector product. Per-env scalars (``alpha``, ``beta``, the line
 search's ``accepted``, ``done``) are (N,) tensors.
 
 Friction is lagged: the normal force and direction are recomputed from each
-Newton iterate, detached. The JAX package keeps the same values with a
-straight-through tangent anchored at the step start, which only matters to
-a gradient through ``step``; the port has none (``step`` raises for inputs
-that require grad).
+Newton iterate, detached. When a gradient is asked for (some input of
+``step`` requires grad), ``step`` is differentiable as the JAX solve is,
+unrolled: the gradient and each Hessian-vector product keep their graphs
+(``create_graph=True``), so CG's solution and every Newton step carry the
+inputs' tangents, and the lag takes the straight-through tangent of the
+lag at the step's start (JAX ``ipc.py:810-826``) with its primal
+unchanged. The candidates, the floors, the line search's step lengths and
+the convergence flags carry no gradient, as in JAX. Without a gradient the
+solve runs as before: no graph outlives a Newton iteration.
 
 The contact families of a nodal model (a union of several soft bodies is
 one model) are here with their primitives: self contact (each surface
@@ -250,15 +255,17 @@ def barrier_force_mag(d, kappa: float, d_hat: float):
     return torch.where(d < d_hat, kappa * g.abs(), 0.0)
 
 
-def scene_friction_basis(p: torch.Tensor, scene, kappa: float, d_hat: float):
-    """(lambda_n, normal) of (N, P, 3) points against the scene, detached:
-    the barrier's force magnitude and the SDF's normalised gradient."""
+def scene_friction_basis(p: torch.Tensor, scene, kappa: float, d_hat: float, create_graph: bool = False):
+    """(lambda_n, normal) of (N, P, 3) points against the scene: the
+    barrier's force magnitude and the SDF's normalised gradient, detached;
+    with ``create_graph`` differentiable in ``p`` and the scene (the normal
+    through the SDF's second derivative)."""
     with torch.enable_grad():
-        pv = p.detach().requires_grad_(True)
+        pv = p if create_graph and p.requires_grad else p.detach().requires_grad_(True)
         d = scene.sdf(pv)
-        (n,) = torch.autograd.grad(d.sum(), pv)
+        (n,) = torch.autograd.grad(d.sum(), pv, create_graph=create_graph)
     n = n / torch.clamp(torch.linalg.vector_norm(n, dim=-1, keepdim=True), min=1e-9)
-    return barrier_force_mag(d.detach(), kappa, d_hat), n
+    return barrier_force_mag(d if create_graph else d.detach(), kappa, d_hat), n
 
 
 def friction_mollifier(s: torch.Tensor, eps: float) -> torch.Tensor:
@@ -268,21 +275,29 @@ def friction_mollifier(s: torch.Tensor, eps: float) -> torch.Tensor:
     return torch.where(s < eps * eps, s / (2 * eps) + eps / 2, torch.sqrt(torch.maximum(s, s.new_full((), eps * eps))))
 
 
-def derivatives(energy, x: torch.Tensor):
+def derivatives(energy, x: torch.Tensor, graph: bool = False):
     """(E, grad, hvp) of a batched energy ``energy(x) -> (N,)`` at x
     (N, V, 3): its values, its gradient, and a function p -> H p of every
     env's Hessian. The gradient's graph is built once; each product is one
     backward through it (the envs' Hessians are independent blocks, so the
-    gradient of the summed energy carries each env's own)."""
+    gradient of the summed energy carries each env's own).
+
+    With ``graph`` the gradient and the products keep their graphs, so they
+    differentiate in ``x``, in ``p`` and in whatever the energy closes over
+    (the counterpart of reverse mode through JAX's ``grad`` and
+    ``jvp(grad)``). ``x`` enters as a view of itself, so the derivatives are
+    the partial ones in the iterate even where the energy also reads ``x``
+    through its step-start terms."""
     with torch.enable_grad():
-        xv = x.detach().requires_grad_(True)
+        xv = x.view_as(x) if graph and x.requires_grad else x.detach().requires_grad_(True)
         e = energy(xv)
         (grad,) = torch.autograd.grad(e.sum(), xv, create_graph=True)
 
     def hvp(p: torch.Tensor) -> torch.Tensor:
-        return torch.autograd.grad(grad, xv, grad_outputs=p, retain_graph=True)[0]
+        with torch.enable_grad():
+            return torch.autograd.grad(grad, xv, grad_outputs=p, retain_graph=True, create_graph=graph)[0]
 
-    return e.detach(), grad.detach(), hvp
+    return e.detach(), grad if graph else grad.detach(), hvp
 
 
 @configclass
@@ -692,16 +707,20 @@ class SoftBodyModel:
             e = e + c.friction_mu * (lam_n * f0).sum(-1)
         return (e, d) if with_sdf else e
 
-    def _friction_lag(self, x_k, scene):
+    def _friction_lag(self, x_k, scene, create_graph=False):
         """(lambda_n, normal) of each surface vertex at the detached iterate
-        ``x_k``: the normal is the scene SDF's gradient, normalised."""
+        ``x_k`` (with ``create_graph`` at ``x_k`` itself, differentiable):
+        the normal is the scene SDF's gradient, normalised."""
         if self.cfg.friction_mu <= 0:
             return None
-        return scene_friction_basis(x_k.index_select(1, self.surface_verts), scene, self.cfg.kappa, self.cfg.d_hat)
+        xs = x_k.index_select(1, self.surface_verts)
+        return scene_friction_basis(xs, scene, self.cfg.kappa, self.cfg.d_hat, create_graph)
 
     # -------------------------------------------------------------- one solve
-    def _solve(self, x, v, scene, aim_pos, dt):
-        """One implicit step of every env at time step ``dt`` -> (x, v)."""
+    def _solve(self, x, v, scene, aim_pos, dt, graph=False):
+        """One implicit step of every env at time step ``dt`` -> (x, v);
+        with ``graph`` differentiable in every input (the module's
+        docstring says how)."""
         c = self.cfg
         n = x.shape[0]
         x_tilde = x + dt * v + dt * dt * self._gravity
@@ -714,11 +733,17 @@ class SoftBodyModel:
         def energy(xx, basis, with_sdf=False):
             return self._energy(xx, x_tilde, scene, aim_pos, x, basis, dt, fam, with_sdf)
 
+        # the straight-through lag: the primal of the iterate's lag, the
+        # tangent of the lag at the step's start (exact: it + 0)
+        lag0 = self._friction_lag(x, scene, create_graph=True) if graph else None
+
         x_k = x
         done = torch.zeros((n,), dtype=torch.bool, device=x.device)
         for _ in range(c.newton_max_iter):
             basis = self._friction_lag(x_k, scene)
-            e0, g, hvp = derivatives(lambda xx: energy(xx, basis), x_k)
+            if lag0 is not None:
+                basis = tuple(it + (s0 - s0.detach()) for it, s0 in zip(basis, lag0))
+            e0, g, hvp = derivatives(lambda xx: energy(xx, basis), x_k, graph)
 
             # matrix-free CG, Jacobi-like preconditioned by the lumped mass
             r = -g
@@ -740,18 +765,21 @@ class SoftBodyModel:
             descent = (sol * g).sum((-2, -1)) < 0
             p = torch.where(descent[:, None, None], sol, -z0)
 
-            # backtracking line search: lower energy and feasible
+            # backtracking line search: lower energy and feasible (its step
+            # lengths carry no gradient, so it keeps no graph)
             alpha = torch.ones((n,), device=x.device)
             accepted = torch.zeros((n,), dtype=torch.bool, device=x.device)
-            for _ in range(c.line_search_iters):
-                x_try = x_k + alpha[:, None, None] * p
-                e_try, d_try = energy(x_try, basis, with_sdf=True)
-                ok = (e_try < e0) & (d_try.amin(-1) > d_floor)
-                if fam is not None:
-                    sv = self.surface_verts
-                    ok = ok & self._family_feasible(fam, x_try, x_try.index_select(1, sv), x_k, x_k.index_select(1, sv))
-                alpha = torch.where(ok | accepted, alpha, alpha * 0.5)
-                accepted = ok | accepted
+            with torch.no_grad():
+                for _ in range(c.line_search_iters):
+                    x_try = x_k + alpha[:, None, None] * p
+                    e_try, d_try = energy(x_try, basis, with_sdf=True)
+                    ok = (e_try < e0) & (d_try.amin(-1) > d_floor)
+                    if fam is not None:
+                        sv = self.surface_verts
+                        ok = ok & self._family_feasible(fam, x_try, x_try.index_select(1, sv), x_k,
+                                                        x_k.index_select(1, sv))
+                    alpha = torch.where(ok | accepted, alpha, alpha * 0.5)
+                    accepted = ok | accepted
             alpha = torch.where(accepted, alpha, 0.0)
 
             step_vec = alpha[:, None, None] * p
@@ -775,23 +803,23 @@ class SoftBodyModel:
         With ``cfg.ccd_substeps = k > 1`` the step runs k solves at dt/k
         against scene poses linearly interpolated ``scene_prev`` -> ``scene``
         (and attachment targets ``aim_prev`` -> ``aim_pos``); either defaults
-        to the end-of-step value held for every substep."""
+        to the end-of-step value held for every substep.
+
+        When grad is enabled and ``state``, an aim or a scene tensor requires
+        grad, the returned state is differentiable in all of them (the
+        unrolled gradient of the JAX solve), with the same primal."""
         inputs = (state.x, state.v, aim_pos, aim_prev)
-        if torch.is_grad_enabled() and (
+        graph = torch.is_grad_enabled() and (
             any(t is not None and t.requires_grad for t in inputs)
             or scene.requires_grad() or (scene_prev is not None and scene_prev.requires_grad())
-        ):
-            raise RuntimeError(
-                "SoftBodyModel.step has no gradient in its inputs yet (ROADMAP Queue 1 item 3b); "
-                "detach them or run under torch.no_grad()"
-            )
+        )
         n = state.x.shape[0]
         if aim_pos is None:
             aim_pos = torch.zeros((n, max(int(self.attachment_verts.shape[0]), 1), 3), device=state.x.device)
 
         k = int(self.cfg.ccd_substeps)
         if k <= 1:
-            x, v = self._solve(state.x, state.v, scene, aim_pos, self.cfg.dt)
+            x, v = self._solve(state.x, state.v, scene, aim_pos, self.cfg.dt, graph)
             return SoftBodyState(x=x, v=v)
 
         if scene_prev is None:
@@ -808,7 +836,7 @@ class SoftBodyModel:
         for i in range(1, k + 1):
             tau = float(np.float32(i) / np.float32(k))
             aim = a_prev + tau * (aim_pos - a_prev)
-            x, v = self._solve(x, v, _lerp_scene(scene_prev, scene, tau), aim, dt_sub)
+            x, v = self._solve(x, v, _lerp_scene(scene_prev, scene, tau), aim, dt_sub, graph)
         return SoftBodyState(x=x, v=v)
 
     def surface_positions(self, state: SoftBodyState) -> torch.Tensor:

@@ -219,7 +219,7 @@ class ShellModel:
             any(t is not None and t.requires_grad for t in (state.x, state.v, aim_pos)) or scene.requires_grad()
         ):
             raise RuntimeError(
-                "ShellModel.step has no gradient in its inputs yet (ROADMAP Queue 1 item 3b); "
+                "ShellModel.step has no gradient in its inputs yet (ROADMAP Queue 1 item 3c); "
                 "detach them or run under torch.no_grad()"
             )
         if aim_pos is None:

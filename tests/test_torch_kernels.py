@@ -164,15 +164,25 @@ def test_wrappers_reject_bad_inputs_on_the_card(cuda):
         tlut.lut_shade(idx, torch.zeros((6, 8), device=cuda), torch.zeros((5, 18), device=cuda))
 
 
-def test_wrappers_refuse_an_input_that_requires_grad(cuda):
-    """Neither kernel has a backward kernel: a CUDA input that requires grad
-    raises instead of giving a result without a ``grad_fn``."""
-    joined = torch.zeros((2, 24, 32), device=cuda, requires_grad=True)
-    mask = torch.zeros((2, 24, 32), dtype=torch.bool, device=cuda)
-    with pytest.raises(RuntimeError, match="no backward kernel"):
-        tpyr.deformation_pyramid(joined, mask, SLICE_SIGMAS_24x32)
+def test_pyramid_gradient_is_its_backward_kernel_and_lut_refuses_grad(cuda):
+    """A CUDA ``joined`` that requires grad gives a result whose gradient is
+    K1's backward kernel (one launch, equal to the plain adjoint); K2 has no
+    backward kernel, so an input of it that requires grad still raises."""
+    rng = np.random.default_rng(4)
+    for shape, sigmas in (((6, 24, 32), SLICE_SIGMAS_24x32), ((2, 48, 64), SIGMAS),
+                          ((2, 12, 16), ((7.0, 4.6), (1.0, 1.0), (7.0, 4.6)))):
+        joined = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda).requires_grad_(True)
+        mask = torch.from_numpy(rng.random(shape) < 0.3).to(cuda)
+        g = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda)
+        out = tpyr.deformation_pyramid(joined, mask, sigmas)
+        assert out.grad_fn is not None
+        before = tpyr.deformation_pyramid.backward_launches
+        (grad,) = torch.autograd.grad(out, joined, g)
+        assert tpyr.deformation_pyramid.backward_launches == before + 1
+        ref = tpyr.deformation_pyramid_backward_plain(g, mask, sigmas)
+        assert float((grad - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
     with torch.no_grad():
-        assert tpyr.deformation_pyramid(joined, mask, SLICE_SIGMAS_24x32).shape == joined.shape
+        assert tpyr.deformation_pyramid(joined, mask, sigmas).grad_fn is None
     idx = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
     feats, table = torch.zeros((6, 8), device=cuda), torch.zeros((5, 18), device=cuda)
     for grad_feats, grad_table in ((True, False), (False, True)):

@@ -165,17 +165,55 @@ COUPLED_IDS = (
 )
 
 
-def _python(code: str) -> subprocess.CompletedProcess:
+RESULTS_TAG = "@@sections@@"
+
+
+def _python(code: str, timeout: float = 120) -> subprocess.CompletedProcess:
     """Run ``code`` in a fresh interpreter at the repo root. Its PyTorch takes
     two threads, as the test processes do (``_torch_bins.setup_torch``): with
     one a core it would crowd the other test workers' cores."""
     env = {**os.environ, "OMP_NUM_THREADS": "2"}
     return subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
-                          timeout=120)
+                          timeout=timeout)
 
 
-def test_import_loads_no_jax():
-    code = (
+def _sections(sections: dict[str, str], prefix: str = "") -> dict[str, dict]:
+    """Run each named block of code in turn in ONE fresh interpreter (after
+    ``prefix``), each in a namespace of its own with its stdout captured ->
+    {name: {"ok", "stdout", "error"}}. One interpreter serves several
+    tests: each test reads and asserts its own block's result."""
+    code = prefix + (
+        "import contextlib, io, json, traceback\n"
+        f"results = {{}}\n"
+        f"for name, block in {list(sections.items())!r}:\n"
+        "    buf = io.StringIO()\n"
+        "    try:\n"
+        "        with contextlib.redirect_stdout(buf):\n"
+        "            exec(compile(block, name, 'exec'), {'__name__': '__section__'})\n"
+        "        results[name] = {'ok': True, 'stdout': buf.getvalue(), 'error': ''}\n"
+        "    except BaseException as e:\n"
+        "        ok = isinstance(e, SystemExit) and e.code in (0, None)\n"
+        "        results[name] = {'ok': ok, 'stdout': buf.getvalue(), 'error': traceback.format_exc()}\n"
+        f"print({RESULTS_TAG!r} + json.dumps(results))\n"
+    )
+    out = _python(code, timeout=120 * len(sections))
+    tagged = [line for line in out.stdout.splitlines() if line.startswith(RESULTS_TAG)]
+    assert out.returncode == 0 and tagged, out.stderr
+    return json.loads(tagged[-1][len(RESULTS_TAG):])
+
+
+def _section_ok(results: dict, name: str) -> str:
+    """The block's stdout, after asserting that it ran to its end."""
+    r = results[name]
+    assert r["ok"], r["error"]
+    return r["stdout"]
+
+
+# Each kind of check runs its blocks in one interpreter (``_sections``),
+# shared by the module's tests: with jax free to import (each block asserts
+# that nothing loaded it), and with the BLOCKER installed.
+def _import_block() -> str:
+    return (
         "import importlib, sys\n"
         f"for m in {SLICE_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
@@ -189,16 +227,10 @@ def test_import_loads_no_jax():
         "assert not bad, bad\n"
         "print('ok')\n"
     )
-    out = _python(code)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
 
 
-def test_coupled_step_loads_no_jax():
-    """A step of the tactile Grasp-Lift id (the coupled solve, the sensor on
-    both pads) and of the Factory-UIPC id at 2 envs, with one Newton and one
-    CG iteration, loads neither jax nor the JAX package."""
-    code = (
+def _coupled_step_block() -> str:
+    return (
         "import sys, torch\n"
         "from tacex_tpu_torch import envs\n"
         "for env_id, a in (('TacEx-Grasp-Lift-Uipc-Tactile-v0', 2), ('TacEx-Factory-PegInsert-Uipc-v0', 4)):\n"
@@ -210,15 +242,10 @@ def test_coupled_step_loads_no_jax():
         "assert not bad, bad\n"
         "print('ok')\n"
     )
-    out = _python(code)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
 
 
-def test_train_script_loads_no_jax(tmp_path):
-    """``scripts/train_torch.py`` trains two iterations on the CPU, writes its
-    run folder, and loads neither jax nor the JAX package."""
-    code = (
+def _train_block(tmp_path) -> str:
+    return (
         "import runpy, sys\n"
         f"sys.argv = ['train_torch.py', '--task', 'TacEx-Ball-Rolling-Privileged-v0', '--num_envs', '4', "
         f"'--iterations', '2', '--rollouts', '4', '--device', 'cpu', '--checkpoint_dir', {str(tmp_path)!r}, "
@@ -227,21 +254,10 @@ def test_train_script_loads_no_jax(tmp_path):
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'tacex_tpu'))\n"
         "assert not bad, bad\n"
     )
-    out = _python(code)
-    assert out.returncode == 0, out.stderr
-    lines = [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
-    assert [line["iter"] for line in lines] == [0, 1] and lines[-1]["env_steps"] == 2 * 4 * 4
-    assert {"steps_per_sec", "loss", "reward_per_step", "lr", "full_reward"} <= set(lines[0])
-    assert sorted(p.name for p in tmp_path.iterdir()) == ["ckpt_0.pt", "ckpt_1.pt", "config.json", "metrics.jsonl"]
-    assert len((tmp_path / "metrics.jsonl").read_text().splitlines()) == 2
 
 
-def test_experiment_harness_loads_no_jax(tmp_path):
-    """``scripts/benchmarking/run_ball_rolling_experiment_torch.py`` runs the
-    UIPC env for two steps on the CPU, writes its report with the physics /
-    tactile split, and loads neither jax nor the JAX package."""
-    out_file = tmp_path / "report.json"
-    code = (
+def _harness_block(out_file) -> str:
+    return (
         "import runpy, sys\n"
         "sys.argv = ['run_ball_rolling_experiment_torch.py', '--env', 'uipc', '--num_envs', '2', '--steps', '2', "
         f"'--device', 'cpu', '--out', {str(out_file)!r}]\n"
@@ -249,20 +265,10 @@ def test_experiment_harness_loads_no_jax(tmp_path):
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'tacex_tpu'))\n"
         "assert not bad, bad\n"
     )
-    out = _python(code)
-    assert out.returncode == 0, out.stderr
-    report = json.loads(out_file.read_text())
-    assert report["env_id"] == "TacEx-Ball-Rolling-Tactile-RGB-Uipc-v0" and report["total_frames"] == 4
-    # the two timings are separate runs of the same physics: on a CPU either may be the longer
-    assert report["avg_ms_per_step"] > 0.0 and report["avg_physics_ms_per_step"] > 0.0
-    assert report["avg_tactile_ms_per_step"] >= 0.0 and report["system"]["device"] == "cpu"
 
 
-def test_tools_run_with_jax_pil_and_matplotlib_blocked(tmp_path):
-    """With importing jax, the JAX package, PIL and matplotlib made to raise:
-    the new modules import, every script of the slice prints its ``--help``,
-    and the Taxim demo and the dashboard write their PNGs on the CPU."""
-    code = BLOCKER + (
+def _tools_block(tmp_path) -> str:
+    return (
         "import contextlib, importlib, io, runpy\n"
         f"for m in {TOOL_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
@@ -282,18 +288,10 @@ def test_tools_run_with_jax_pil_and_matplotlib_blocked(tmp_path):
         "v.save_plots(); v.save_frame_strip('f')\n"
         "print('ok')\n"
     )
-    out = _python(code)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip().splitlines()[-1] == "ok"
-    assert sorted(p.name for p in tmp_path.rglob("*.png")) == ["f_strip.png", "metrics.png", "shapes.png"]
 
 
-def test_uipc_scripts_run_with_jax_blocked():
-    """With importing jax and the JAX package made to raise: the UIPC modules
-    import, each new script prints its ``--help`` with ``--device``, runs
-    one step on the CPU when asked, and without a card its default device
-    (``cuda``) raises, as do ``UipcSim`` and ``UipcInteractiveScene``."""
-    code = BLOCKER + (
+def _uipc_scripts_block() -> str:
+    return (
         "import contextlib, importlib, inspect, io, runpy, torch\n"
         f"for m in {UIPC_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
@@ -330,19 +328,10 @@ def test_uipc_scripts_run_with_jax_blocked():
         "            assert 'no CUDA device' in str(e), e\n"
         "print('ok')\n"
     )
-    out = _python(code)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip().splitlines()[-1] == "ok"
 
 
-def test_coupled_scripts_run_with_jax_blocked():
-    """With importing jax and the JAX package made to raise: the shell
-    modules import, each coupled-world benchmarking script prints its
-    ``--help`` with ``--device`` (default ``cuda``), without a card its
-    default device raises (the sweep records the error in each of its
-    lines and goes on, as the JAX sweep does). Their CPU runs are
-    ``tests/test_torch_scripts_coupled.py``'s."""
-    code = BLOCKER + (
+def _coupled_scripts_block() -> str:
+    return (
         "import contextlib, importlib, io, json, runpy, torch\n"
         f"for m in {SHELL_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
@@ -374,9 +363,121 @@ def test_coupled_scripts_run_with_jax_blocked():
         "        assert not ran, script + ' ran without a card'\n"
         "print('ok')\n"
     )
-    out = _python(code)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+def _gradients_block() -> str:
+    return (
+        "import numpy as np, torch\n"
+        "from tacex_tpu_torch.ops import pyramid\n"
+        "from tacex_tpu_torch.physics.soft import ipc, mesh\n"
+        "from tacex_tpu_torch.sensors.gelsight.taxim import calib, optical\n"
+        "cal = calib.load_calib().at_resolution((24, 32))\n"
+        "yy, xx = np.meshgrid(np.arange(24.0), np.arange(32.0), indexing='ij')\n"
+        "hm = torch.from_numpy((0.01 * ((yy - 12.0) ** 2 + (xx - 16.0) ** 2) - 0.5).astype(np.float32))[None]\n"
+        "hm.requires_grad_(True)\n"
+        "(g,) = torch.autograd.grad(optical.render(cal, hm, interp='bilinear').sum(), hm)\n"
+        "assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0\n"
+        "mask = hm.detach() < -0.3\n"
+        "gp = pyramid.deformation_pyramid_backward(torch.ones_like(g), mask, ((2.0, 2.0), (1.0, 1.0)))\n"
+        "assert gp.shape == g.shape and pyramid.deformation_pyramid.backward_launches == 0\n"
+        "m = mesh.box_tet_mesh((0.01, 0.01, 0.004), (2, 2, 1))\n"
+        "model = ipc.SoftBodyModel(m, cfg=ipc.IpcSolverCfg(newton_max_iter=2, cg_iters=2), device='cpu')\n"
+        "s0 = ipc.SoftBodyState.init(1, m.points, device='cpu')\n"
+        "v = s0.v.clone().requires_grad_(True)\n"
+        "st = model.step(ipc.SoftBodyState(x=s0.x, v=v), ipc.RigidSdfScene.empty(1, device='cpu'))\n"
+        "(gv,) = torch.autograd.grad(st.x.sum(), v)\n"
+        "assert bool(torch.isfinite(gv).all()) and float(gv.abs().max()) > 0\n"
+        "print('ok')\n"
+    )
+
+
+@pytest.fixture(scope="module")
+def loaded(tmp_path_factory):
+    """(tmp dir, results) of the blocks run with jax importable."""
+    tmp = tmp_path_factory.mktemp("no_jax")
+    (tmp / "train").mkdir()
+    blocks = {"import": _import_block(), "coupled_step": _coupled_step_block(),
+              "train": _train_block(tmp / "train"), "harness": _harness_block(tmp / "report.json")}
+    return tmp, _sections(blocks)
+
+
+@pytest.fixture(scope="module")
+def blocked(tmp_path_factory):
+    """(tmp dir, results) of the blocks run with jax, the JAX package, PIL and
+    matplotlib made to raise on import."""
+    tmp = tmp_path_factory.mktemp("blocked")
+    blocks = {"tools": _tools_block(tmp), "uipc_scripts": _uipc_scripts_block(),
+              "coupled_scripts": _coupled_scripts_block(), "gradients": _gradients_block()}
+    return tmp, _sections(blocks, prefix=BLOCKER)
+
+
+def test_import_loads_no_jax(loaded):
+    assert _section_ok(loaded[1], "import").strip() == "ok"
+
+
+def test_coupled_step_loads_no_jax(loaded):
+    """A step of the tactile Grasp-Lift id (the coupled solve, the sensor on
+    both pads) and of the Factory-UIPC id at 2 envs, with one Newton and one
+    CG iteration, loads neither jax nor the JAX package."""
+    assert _section_ok(loaded[1], "coupled_step").strip() == "ok"
+
+
+def test_train_script_loads_no_jax(loaded):
+    """``scripts/train_torch.py`` trains two iterations on the CPU, writes its
+    run folder, and loads neither jax nor the JAX package."""
+    stdout = _section_ok(loaded[1], "train")
+    tmp_path = loaded[0] / "train"
+    lines = [json.loads(line) for line in stdout.splitlines() if line.startswith("{")]
+    assert [line["iter"] for line in lines] == [0, 1] and lines[-1]["env_steps"] == 2 * 4 * 4
+    assert {"steps_per_sec", "loss", "reward_per_step", "lr", "full_reward"} <= set(lines[0])
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["ckpt_0.pt", "ckpt_1.pt", "config.json", "metrics.jsonl"]
+    assert len((tmp_path / "metrics.jsonl").read_text().splitlines()) == 2
+
+
+def test_experiment_harness_loads_no_jax(loaded):
+    """``scripts/benchmarking/run_ball_rolling_experiment_torch.py`` runs the
+    UIPC env for two steps on the CPU, writes its report with the physics /
+    tactile split, and loads neither jax nor the JAX package."""
+    _section_ok(loaded[1], "harness")
+    report = json.loads((loaded[0] / "report.json").read_text())
+    assert report["env_id"] == "TacEx-Ball-Rolling-Tactile-RGB-Uipc-v0" and report["total_frames"] == 4
+    # the two timings are separate runs of the same physics: on a CPU either may be the longer
+    assert report["avg_ms_per_step"] > 0.0 and report["avg_physics_ms_per_step"] > 0.0
+    assert report["avg_tactile_ms_per_step"] >= 0.0 and report["system"]["device"] == "cpu"
+
+
+def test_tools_run_with_jax_pil_and_matplotlib_blocked(blocked):
+    """With importing jax, the JAX package, PIL and matplotlib made to raise:
+    the new modules import, every script of the slice prints its ``--help``,
+    and the Taxim demo and the dashboard write their PNGs on the CPU."""
+    tmp_path, results = blocked
+    assert _section_ok(results, "tools").strip().splitlines()[-1] == "ok"
+    assert sorted(p.name for p in tmp_path.rglob("*.png")) == ["f_strip.png", "metrics.png", "shapes.png"]
+
+
+def test_uipc_scripts_run_with_jax_blocked(blocked):
+    """With importing jax and the JAX package made to raise: the UIPC modules
+    import, each new script prints its ``--help`` with ``--device``, runs
+    one step on the CPU when asked, and without a card its default device
+    (``cuda``) raises, as do ``UipcSim`` and ``UipcInteractiveScene``."""
+    assert _section_ok(blocked[1], "uipc_scripts").strip().splitlines()[-1] == "ok"
+
+
+def test_coupled_scripts_run_with_jax_blocked(blocked):
+    """With importing jax and the JAX package made to raise: the shell
+    modules import, each coupled-world benchmarking script prints its
+    ``--help`` with ``--device`` (default ``cuda``), without a card its
+    default device raises (the sweep records the error in each of its
+    lines and goes on, as the JAX sweep does). Their CPU runs are
+    ``tests/test_torch_scripts_coupled.py``'s."""
+    assert _section_ok(blocked[1], "coupled_scripts").strip().splitlines()[-1] == "ok"
+
+
+def test_gradients_run_with_jax_blocked(blocked):
+    """With jax and the JAX package made to raise: ``render``'s height-map
+    gradient (through the pyramid's plain adjoint on the CPU), the CPU
+    wrapper of K1's backward, and a differentiable ``SoftBodyModel.step``."""
+    assert _section_ok(blocked[1], "gradients").strip() == "ok"
 
 
 def test_parallel_dryrun_runs_with_jax_blocked_in_every_rank(tmp_path):

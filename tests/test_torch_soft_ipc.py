@@ -37,6 +37,9 @@ from tacex_tpu_torch.physics.soft import mesh as tmesh
 setup_torch()
 
 STEP_ATOL = 1.5e-5
+# the solver settings of every test here: velocity_tol = 0, so no convergence
+# decision can flip, and one jit of the JAX step serves the whole file
+SOLVER = dict(velocity_tol=0.0)
 
 
 def assert_steps_match(atol, min_disp=2e-4, **kw) -> None:
@@ -113,7 +116,7 @@ def test_barrier_matches_jax():
 def pressed():
     """The gel after one JAX step of the press, and the inputs of its next
     step: (x_prev, x, x_tilde, aim, spheres, planes)."""
-    model_j, model_t, step_j = models()
+    model_j, model_t, step_j = models(**SOLVER)
     x0, v0, aim, sph, planes = press_inputs(model_j)
     sj, _ = scenes(sph, planes)
     s1 = step_j(jipc.SoftBodyState(x=jnp.asarray(x0), v=jnp.asarray(v0)), sj, jnp.asarray(aim))
@@ -126,7 +129,7 @@ def pressed():
 def test_friction_lag_matches_jax(pressed):
     """(lambda_n, normal) at the pressed gel: the barrier's force magnitude
     and the normalised SDF gradient of each surface vertex."""
-    model_j, model_t, _ = models()
+    model_j, model_t, _ = models(**SOLVER)
     _, x1, _, _, sph, planes = pressed
     sj, st = scenes(sph, planes)
     c = model_j.cfg
@@ -149,7 +152,7 @@ def test_energy_gradient_hvp_match_jax(pressed):
     """The incremental potential of the pressed gel, with friction lagged
     from it, its gradient and a Hessian-vector product, each env's against
     ``jax.grad`` and forward-over-reverse ``jax.jvp`` of its own energy."""
-    model_j, model_t, _ = models()
+    model_j, model_t, _ = models(**SOLVER)
     x0, x1, x_tilde, aim, sph, planes = pressed
     sj, st = scenes(sph, planes)
     lam, nrm = model_t._friction_lag(torch.from_numpy(x1), st)
@@ -186,11 +189,11 @@ def test_cofactor_det_matches_lu_det():
 def test_step_matches_jax():
     """Two steps of the press at velocity_tol = 0: every Newton iteration is
     taken on both sides, so no convergence decision can flip."""
-    assert_steps_match(STEP_ATOL, velocity_tol=0.0)
+    assert_steps_match(STEP_ATOL, **SOLVER)
 
 
 def test_sphere_contact_force_matches_jax(pressed):
-    model_j, model_t, _ = models()
+    model_j, model_t, _ = models(**SOLVER)
     _, x1, _, _, sph, planes = pressed
     sj, st = scenes(sph, planes)
     f_j = np.asarray(jax.jit(model_j.sphere_contact_force)(jipc.SoftBodyState(x=jnp.asarray(x1), v=jnp.zeros_like(x1)), sj))
@@ -201,7 +204,7 @@ def test_sphere_contact_force_matches_jax(pressed):
 
 
 def test_unported_branches_raise():
-    """Every branch of the model is ported now. Shell elements join it: their
+    """Every branch of the model is ported now, its gradient too. Shell elements join it: their
     masses add to the tets' lumped masses and their energies to the elastic
     energy (held to the JAX package in ``test_torch_shell*.py``). Self,
     static-trimesh and edge-edge contact and the broad-phase counters build
@@ -237,6 +240,16 @@ def test_unported_branches_raise():
     free = model.step(tipc.SoftBodyState.init(1, mesh.points, device="cpu"), scene)
     np.testing.assert_array_equal(
         model.step(tipc.SoftBodyState.init(1, mesh.points, device="cpu"), threaded).x.numpy(), free.x.numpy())
+    # SoftBodyModel.step differentiates (held to the JAX package in test_torch_grad.py); ShellModel.step
+    # keeps its refusal until ROADMAP item 3c
     state = tipc.SoftBodyState.init(1, mesh.points, device="cpu")
-    with pytest.raises(RuntimeError, match="no gradient"):
-        model.step(tipc.SoftBodyState(x=state.x.requires_grad_(True), v=state.v), scene)
+    short = tipc.SoftBodyModel(mesh, device="cpu", cfg=tipc.IpcSolverCfg(newton_max_iter=1, cg_iters=1))
+    stepped = short.step(tipc.SoftBodyState(x=state.x.requires_grad_(True), v=state.v), scene)
+    assert stepped.x.grad_fn is not None and stepped.v.grad_fn is not None
+    from tacex_tpu_torch.physics.soft import shell as tshell
+
+    cloth = tshell.ShellModel(mesh.points, top, device="cpu")
+    cloth_state = tipc.SoftBodyState(x=torch.from_numpy(mesh.points)[None].requires_grad_(True),
+                                     v=torch.zeros((1,) + mesh.points.shape))
+    with pytest.raises(RuntimeError, match="no gradient.*item 3c"):
+        cloth.step(cloth_state, scene)
